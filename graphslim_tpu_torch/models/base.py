@@ -1,0 +1,94 @@
+"""Model base: adjacency dispatch + the shared GNN skeleton.
+
+Counterpart of ``graphslim_tpu/models/base.py``.  ``aggregate`` takes:
+
+* :class:`graphslim_tpu_torch.graph.SparseAdj` or a torch sparse CSR
+  tensor — ``torch.sparse.mm``;
+* a dense ``[n, n]`` tensor — matmul (synthetic condensed graphs; ``x``
+  may carry a leading batch axis);
+* :class:`graphslim_tpu_torch.kernels.sample.BlockSample` — the
+  contiguous-slot weighted reshape-sum of sampled neighbourhoods;
+* ``None`` — identity (structure-free methods).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from graphslim_tpu_torch import graph as G
+from graphslim_tpu_torch.kernels.sample import BlockSample
+
+
+def aggregate(adj: Any, x: torch.Tensor) -> torch.Tensor:
+    """One propagation step A @ x for any supported adjacency form."""
+    if adj is None:
+        return x
+    if isinstance(adj, G.SparseAdj):
+        return adj.matmul(x)
+    if adj.layout == torch.sparse_csr:
+        return torch.sparse.mm(adj, x)
+    return torch.matmul(adj, x)
+
+
+def aggregate_block(weights: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """One sampled-block level: ``weights [..., m_out, s]``,
+    ``x [..., m_out * s, d]`` → ``[..., m_out, d]``."""
+    m_out, s = weights.shape[-2:]
+    xr = x.reshape(*x.shape[:-2], m_out, s, x.shape[-1])
+    return torch.einsum("...ms,...msd->...md", weights.to(x.dtype), xr)
+
+
+def block_level_adj(adj: Any, layer: int):
+    """Per-layer adjacency for list/BlockSample forms; identity otherwise."""
+    if isinstance(adj, BlockSample):
+        return ("block", adj.weights[layer])
+    if isinstance(adj, (list, tuple)):
+        return ("plain", adj[layer])
+    return ("plain", adj)
+
+
+def layer_aggregate(adj: Any, layer: int, x: torch.Tensor) -> torch.Tensor:
+    kind, a = block_level_adj(adj, layer)
+    if kind == "block":
+        return aggregate_block(a, x)
+    return aggregate(a, x)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Static hyperparameters shared by the zoo."""
+
+    nfeat: int
+    nhid: int
+    nclass: int
+    nlayers: int = 2
+    dropout: float = 0.5
+    alpha: float = 0.1
+    ntrans: int = 1
+    with_bn: bool = False
+    activation: str = "relu"
+
+
+class GNNModel:
+    """Base: subclasses define ``init`` and ``_forward``; ``apply``
+    returns log-probabilities over the last axis."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+
+    def init(self, gen: torch.Generator) -> dict:
+        raise NotImplementedError
+
+    def _forward(self, params: dict, x: torch.Tensor, adj: Any, *,
+                 training: bool, gen: Optional[torch.Generator]
+                 ) -> torch.Tensor:
+        raise NotImplementedError
+
+    def apply(self, params: dict, x: torch.Tensor, adj: Any, *,
+              training: bool = False,
+              gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        out = self._forward(params, x, adj, training=training, gen=gen)
+        return torch.log_softmax(out, dim=-1)

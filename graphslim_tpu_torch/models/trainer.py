@@ -1,0 +1,76 @@
+"""GNN trainer with per-epoch validation.
+
+Counterpart of ``graphslim_tpu/models/trainer.py``; the epoch ``lax.scan``
+is a Python loop, and the best-by-validation selection stays on the device
+(``torch.where``), so an epoch never waits for the host.  Semantics as
+there: Adam with coupled weight decay, lr ×0.1 from the halfway epoch when
+lr > 1e-3, best weights by validation metric.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from graphslim_tpu_torch import utils
+from graphslim_tpu_torch.models.base import GNNModel
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    epochs: int = 300
+    lr: float = 0.01
+    weight_decay: float = 5e-4
+    metric: str = "accuracy"
+
+
+def _select_rows(out: torch.Tensor, idx) -> torch.Tensor:
+    return out if idx is None else out[idx]
+
+
+def fit_with_val(model: GNNModel, gen: torch.Generator, *, train: tuple,
+                 val: tuple, cfg: TrainConfig,
+                 params0: Optional[dict] = None):
+    """Train with per-epoch validation → (best_params, best_val, losses).
+
+    ``train``/``val`` are ``(x, adj_normalized, y, idx_or_None)``.
+    """
+    tx, tadj, ty, tidx = train
+    vx, vadj, vy, vidx = val
+    metric = utils.metric_fn(cfg.metric, model.cfg.nclass)
+    params = utils.trainable(model.init(gen) if params0 is None
+                             else params0)
+    leaves = utils.tree_leaves(params)
+    opt = utils.Adam(cfg.lr, weight_decay=cfg.weight_decay)
+    state = opt.init(leaves)
+    best_acc = torch.tensor(-1.0, device=tx.device)
+    best_params = utils.tree_map(lambda p: p.detach().clone(), params)
+    best = utils.tree_leaves(best_params)
+    half = cfg.epochs // 2
+    losses = []
+    for i in range(cfg.epochs):
+        lr_t = cfg.lr * 0.1 if (i >= half and cfg.lr > 1e-3) else cfg.lr
+        with torch.enable_grad():
+            out = model.apply(params, tx, tadj, training=True, gen=gen)
+            loss = utils.nll_loss(_select_rows(out, tidx), ty)
+            grads = torch.autograd.grad(loss, leaves)
+        opt.step(leaves, grads, state, lr=lr_t)
+        with torch.no_grad():
+            val_out = _select_rows(model.apply(params, vx, vadj), vidx)
+            acc = metric(val_out, vy)
+            better = acc > best_acc
+            best_acc = torch.where(better, acc, best_acc)
+            for b, p in zip(best, leaves):
+                b.copy_(torch.where(better, p, b))
+        losses.append(loss.detach())
+    return best_params, best_acc, torch.stack(losses)
+
+
+@torch.no_grad()
+def evaluate(model: GNNModel, params: dict, x, adj_norm: Any, y,
+             idx=None, metric: str = "accuracy") -> torch.Tensor:
+    """Metric of model predictions on (x, adj) at rows ``idx``."""
+    out = _select_rows(model.apply(params, x, adj_norm), idx)
+    return utils.metric_fn(metric, model.cfg.nclass)(out, y)

@@ -1,0 +1,50 @@
+"""Reduction-method registry: name → lazily imported class.
+
+Counterpart of ``graphslim_tpu/reduce/registry.py``.  Every method the
+JAX package registers is known here; the ones this port does not have yet
+raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+# name → (module under graphslim_tpu_torch.reduce, class)
+_PORTED = {
+    "random": ("coreset", "Random"),
+    "gcond": ("gcond", "GCond"),
+}
+
+# name → ROADMAP.md queue-1 item that ports it
+_QUEUED = {
+    **{m: 5 for m in ("doscond", "gcondx", "doscondx")},
+    **{m: 9 for m in ("gcdm", "gcdmx", "sgdd", "msgc", "sfgc", "geom",
+                      "gcsntk", "simgc", "gdem", "gecc", "mirage")},
+    **{m: 10 for m in ("kcenter", "kcenter_sample", "herding", "cent_d",
+                       "cent_p", "clustering", "averaging", "vng")},
+    **{m: 11 for m in ("random_edge", "g_spar", "local_degree", "scan",
+                       "spanning_forest", "rank_degree", "t_spanner",
+                       "variation_neighborhoods", "variation_edges",
+                       "variation_cliques", "heavy_edge", "algebraic_jc",
+                       "affinity_gs", "kron")},
+}
+
+_ALIASES = {"algebraic_JC": "algebraic_jc", "affinity_GS": "affinity_gs",
+            "tspanner": "t_spanner", "cluster": "clustering",
+            "average": "averaging"}
+
+
+def create_reducer(method: str, data, args, **kwargs):
+    """Instantiate a reducer on ``data``'s device; ``kwargs`` (e.g.
+    ``labels_syn_override``) pass through to the reducer."""
+    method = _ALIASES.get(method, method)
+    if method in _QUEUED:
+        raise NotImplementedError(
+            f"reduction method {method!r} is not ported yet (ROADMAP.md, "
+            f"queue 1, item {_QUEUED[method]})")
+    if method not in _PORTED:
+        raise ValueError(f"Unknown reduction method {method!r}; "
+                         f"available: {sorted(_PORTED)}")
+    module, cls = _PORTED[method]
+    mod = importlib.import_module(f"graphslim_tpu_torch.reduce.{module}")
+    return getattr(mod, cls)(data, args, **kwargs)

@@ -1,0 +1,130 @@
+"""Shared utilities: device resolution, seeding, losses, metrics, Adam.
+
+Counterpart of ``graphslim_tpu/utils.py`` (only what the GCond → SGC path
+needs).  ``Adam`` is written out so its arithmetic is exactly optax's
+``adam``: bias-corrected moments and ``eps`` added after the square root.
+"""
+
+from __future__ import annotations
+
+import os
+import random
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the CUDA card unless the caller
+    asks for another.  Raises when CUDA is asked for and absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def seed_everything(seed: int) -> torch.Generator:
+    """Seed host RNGs and return a CPU ``torch.Generator``."""
+    random.seed(seed)
+    np.random.seed(seed)
+    os.environ["PYTHONHASHSEED"] = str(seed)
+    return torch.Generator().manual_seed(seed)
+
+
+def make_generator(seed: int, device) -> torch.Generator:
+    return torch.Generator(device=torch.device(device)).manual_seed(seed)
+
+
+# ---------------------------------------------------------------------------
+# Parameter trees (nested dicts/lists of tensors, leaves in JAX's order:
+# dict keys sorted)
+# ---------------------------------------------------------------------------
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in tree_leaves(t)]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
+                          for i, t in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def trainable(tree):
+    """Fresh leaf tensors (detached copies) that require grad."""
+    return tree_map(lambda x: x.detach().clone().requires_grad_(True), tree)
+
+
+# ---------------------------------------------------------------------------
+# Metrics and losses
+# ---------------------------------------------------------------------------
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    pred = torch.argmax(logits, dim=-1)
+    return (pred == labels).to(torch.float32).mean(dim=-1)
+
+
+def metric_fn(name: str, nclass: int):
+    if name != "accuracy":
+        raise NotImplementedError(
+            f"metric {name!r} is not ported yet (ROADMAP.md, queue 1, "
+            "item 13)")
+    return accuracy
+
+
+def nll_loss(log_probs: torch.Tensor, labels: torch.Tensor,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean negative log-likelihood over the (optionally masked) rows of
+    the last-but-one axis; leading axes are a batch."""
+    ll = torch.gather(log_probs, -1, labels.unsqueeze(-1)).squeeze(-1)
+    if mask is not None:
+        m = mask.to(ll.dtype)
+        return -(ll * m).sum(-1) / torch.clamp(m.sum(-1), min=1.0)
+    return -ll.mean(-1)
+
+
+# ---------------------------------------------------------------------------
+# Adam over lists of tensors (optax.adam / scale_by_adam arithmetic)
+# ---------------------------------------------------------------------------
+
+class Adam:
+    """Adam with optax's arithmetic: ``u = m̂ / (sqrt(v̂) + eps)``.
+
+    ``weight_decay`` is coupled (added to the gradient before the moments),
+    as ``optax.chain(add_decayed_weights, scale_by_adam)`` and
+    ``torch.optim.Adam`` do.  Parameters are updated in place.
+    """
+
+    def __init__(self, lr: float, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, weight_decay: float = 0.0):
+        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+        self.weight_decay = weight_decay
+
+    def init(self, params: list) -> dict:
+        return {"m": [torch.zeros_like(p) for p in params],
+                "v": [torch.zeros_like(p) for p in params], "t": 0}
+
+    @torch.no_grad()
+    def step(self, params: list, grads: list, state: dict,
+             lr: Optional[float] = None) -> None:
+        lr = self.lr if lr is None else lr
+        state["t"] += 1
+        t = state["t"]
+        bc1, bc2 = 1.0 - self.b1 ** t, 1.0 - self.b2 ** t
+        for p, g, m, v in zip(params, grads, state["m"], state["v"]):
+            if self.weight_decay:
+                g = g + self.weight_decay * p
+            m.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
+            v.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
+            u = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
+            p.sub_(lr * u)
