@@ -9,7 +9,8 @@ line of output each, any failed check raises (non-zero exit):
    slice's shapes (n = 1354, H = 256, L2 = 1) and smaller ragged ones,
    in fp32 and with bf16 matmul operands;
 3. the PGE backward kernel against autograd of the plain version, on all
-   seven gradients, and in fp32 against a float64 plain version;
+   seven gradients, and in both precisions against a float64 plain
+   version;
 4. GCond on the full-width ``ogbn-arxiv`` twin (n_syn 1354, hidden 256,
    PGE nhid 256, 3 epochs × 20 outer steps, a checkpoint evaluation) through
    ``create_reducer(...).reduce()``, with the kernels' launch counts and a
@@ -47,9 +48,16 @@ PEAK_BYTES = 3.35e12
 # round the matmul operands to bf16 (relative error 2^-9 each); a rounding
 # flip of one operand moves a product by that much.
 TOL_FWD = {False: (1e-4, 1e-5), True: (2e-2, 1e-4)}
-# Backward, bf16: 5e-2, since the kernel rounds dz before its matmuls where
-# autograd of the plain version rounds the matmul results instead.  fp32:
-# per case below.  At the slice's n the fp32 gradient is ill-conditioned in
+# Backward, bf16: 1.5e-2, 1.7 times the largest reading on the H100 (8.8e-3
+# of max|grad|, dwmid at n = 1354): the kernel rounds dz to bf16 before its
+# matmuls where autograd of the plain version rounds the matmul results
+# instead.  A per-channel sum over all pairs (dbeta, dgamma) can cancel to
+# a small result, and there the two roundings differ by more (4.7e-2 of
+# max|dbeta| at n = 500, beta + 4); such a gradient passes only where the
+# kernel is nearer float64 than the plain version.  Both bf16 gradients
+# are held to the float64 gradient with fp32 operands (the exact
+# function): |kernel - f64| ≤ 2·|plain bf16 - f64| + 1e-4·max|f64|.
+# fp32: per case below.  At n ≥ 500 the fp32 gradient is ill-conditioned in
 # a few tiles (a pre-activation within rounding of the ReLU kink, or a
 # channel whose BatchNorm variance nearly cancels): measured on the H100,
 # the plain fp32 version is up to 1.7e-3·max|grad| off a float64 run of
@@ -57,10 +65,11 @@ TOL_FWD = {False: (1e-4, 1e-5), True: (2e-2, 1e-4)}
 # off the kink, and 2.3e-3·max with generic inputs, at whole tile rows.  So
 # the kernel is held to rtol 1e-4 against the plain fp32 version where that
 # version is accurate (n ≤ 500 off the kink, n = 45), and otherwise to a
-# bound that covers the plain version's own error; off the kink it is also
-# held to a float64 plain version: |kernel - f64| ≤ 2·|plain fp32 - f64| +
-# 1e-4·max|ref|.
-RTOL_BWD_BF16 = (5e-2, 1e-4)
+# bound that covers the plain version's own error.  Against float64 it is
+# held off the kink to |kernel - f64| ≤ 2·|plain fp32 - f64| + 1e-4·max,
+# and with generic inputs, where kink flips land on either side, to a
+# stated flip-sized bound rtol·max|f64|.
+RTOL_BWD_BF16 = (1.5e-2, 1e-4)
 GRAD_NAMES = ("da", "db", "dwmid", "dbmid", "dgamma", "dbeta", "dwlast")
 
 
@@ -91,13 +100,15 @@ def max_err(got, ref) -> float:
     return float((got - ref).abs().max()) if ref.numel() else 0.0
 
 
-def check_close(name: str, got, ref, tol, scale=None) -> float:
+def check_close(name: str, got, ref, tol, bad: list, scale=None) -> float:
+    """max|got - ref|; a message goes to ``bad`` when it exceeds
+    rtol·max|scale| + atol (``scale`` defaults to ``ref``)."""
     rtol, atol = tol
     scale = ref if scale is None else scale
     err = max_err(got, ref)
     lim = rtol * float(scale.abs().max()) + atol if ref.numel() else atol
     if not (err <= lim):
-        fail(f"{name}: max|Δ| {err:.3e} > {lim:.3e}")
+        bad.append(f"{name}: max|Δ| {err:.3e} > {lim:.3e}")
     return err
 
 
@@ -171,73 +182,95 @@ def plain_vjp_ms(K, args, R, n: int, bf16: bool) -> float:
 
 
 # (n, H, L2, BatchNorm beta shift, fp32 backward rtol against the plain
-# fp32 version, whether the float64 judgement is enforced).  With generic
-# inputs the kernel's and the plain version's distances to float64 are
-# printed: both are flip-sized, and which of the two a flip lands on is
-# chance.
-KERNEL_CASES = [(1354, 256, 1, 0.0, 1e-2, False),
-                (1354, 256, 1, 4.0, 5e-3, True),
-                (500, 256, 1, 4.0, 1e-4, True),
-                (500, 256, 1, 0.0, 1e-2, False),
-                (200, 256, 2, 4.0, 1e-4, True),
-                (45, 64, 0, 0.0, 1e-4, True)]
+# fp32 version, fp32 rtol against float64: None holds the kernel to twice
+# the plain version's distance instead).  Each case's two precisions share
+# its inputs.  The first case is the slice's shape and times the kernels.
+KERNEL_CASES = [(1354, 256, 1, 0.0, 1e-2, 1e-2),
+                (1354, 256, 1, 4.0, 5e-3, None),
+                (500, 256, 1, 4.0, 1e-4, None),
+                (500, 256, 1, 0.0, 1e-2, 1e-2),
+                (200, 256, 2, 4.0, 1e-4, None),
+                (45, 64, 0, 0.0, 1e-4, None)]
+
+
+def f64_distances(grads, gref, g64, rtol64, bad: list, tag: str,
+                  rows: bool) -> dict:
+    """Each gradient's distance to float64, the kernel's beside the plain
+    version's, held to the bound ``rtol64`` names (see RTOL_BWD_BF16), and
+    with ``rows`` the rows of da that are off float64 by more than
+    1e-3·max for each (a ReLU flip moves a few rows, a wrong formula all
+    of them)."""
+    out = {}
+    for i, name in enumerate(GRAD_NAMES):
+        if not g64[i].numel():
+            continue
+        # dbmid is analytically 0: its scale is that of dbeta
+        top = float((g64[5] if name == "dbmid" else g64[i]).abs().max())
+        e_k = max_err(grads[i].double(), g64[i])
+        e_p = max_err(gref[i].double(), g64[i])
+        lim = (2 * e_p + 1e-4 * top if rtol64 is None
+               else rtol64 * top + 1e-5)
+        if not e_k <= lim:
+            bad.append(f"bwd {name} {tag}: |kernel - f64| {e_k:.3e} > "
+                       f"{lim:.3e}")
+        out[name] = (e_k, e_p)
+    if not rows:
+        return out
+    big = 1e-3 * float(g64[0].abs().max())
+    out["da rows off (kernel/plain)"] = tuple(
+        int(((x.double() - g64[0]).abs() > big).any(1).sum())
+        for x in (grads[0], gref[0]))
+    return out
 
 
 def compare_kernels(K, stats: dict) -> None:
     import torch
 
+    bad: list = []
     for case in KERNEL_CASES:
-        n, H, L2, shift, rtol32, f64_judged = case
+        n, H, L2, shift, rtol32, rtol64 = case
         main_shape = case == KERNEL_CASES[0]
+        args = pge_inputs(n, H, L2, seed=n + L2, beta_shift=shift)
+        R = torch.randn(n, n, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(7))
+        # the exact function's gradient: fp32 operands, float64 arithmetic
+        g64 = plain_grads(K, args, R, n, False, torch.float64)
         for bf16 in (False, True):
             tol_bwd = RTOL_BWD_BF16 if bf16 else (rtol32, 1e-5)
             tag = f"n={n} H={H} L2={L2} beta+{shift:g} bf16={bf16}"
-            args = pge_inputs(n, H, L2, seed=n + L2, beta_shift=shift)
             out, ws, stat = K.pge_fwd(*args, n, bf16)
             torch.cuda.synchronize()
             with torch.no_grad():
                 ref = K.pair_scores_plain(*args, n, bf16)
-            e_f = check_close(f"fwd {tag}", out, ref, TOL_FWD[bf16])
-            R = torch.randn(n, n, device="cuda",
-                            generator=torch.Generator("cuda").manual_seed(7))
+            e_f = check_close(f"fwd {tag}", out, ref, TOL_FWD[bf16], bad)
             grads = K.pge_bwd(*args, R, ws, stat, n, bf16)
             torch.cuda.synchronize()
             gref = plain_grads(K, args, R, n, bf16)
-            errs, e64 = {}, {}
-            for i, (name, got, want) in enumerate(
-                    zip(GRAD_NAMES, grads, gref)):
+            e64 = f64_distances(grads, gref, g64, None if bf16 else rtol64,
+                                bad, tag, rows=not bf16)
+            errs, rel = {}, {}
+            for name, got, want in zip(GRAD_NAMES, grads, gref):
                 # dbmid is analytically 0 (BatchNorm shift invariance):
                 # its scale is that of dbeta, the same kind of sum
                 scale = gref[5] if name == "dbmid" else want
+                off: list = []
                 errs[name] = check_close(f"bwd {name} {tag}", got, want,
-                                         tol_bwd, scale)
-            if not bf16:
-                g64 = plain_grads(K, args, R, n, bf16, torch.float64)
-                for i, name in enumerate(GRAD_NAMES):
-                    if not g64[i].numel():
-                        continue
-                    scale = g64[5] if name == "dbmid" else g64[i]
-                    e_k = max_err(grads[i].double(), g64[i])
-                    e_p = max_err(gref[i].double(), g64[i])
-                    lim = 2 * e_p + 1e-4 * float(scale.abs().max())
-                    if not e_k <= lim and f64_judged:
-                        fail(f"bwd {name} {tag}: |kernel - f64| {e_k:.3e} "
-                             f"> 2·|plain - f64| + 1e-4·max {lim:.3e}")
-                    e64[name] = (e_k, e_p)
-                # rows of da off float64 by more than 1e-3·max: a ReLU flip
-                # moves a few rows, a wrong formula all of them
-                big = 1e-3 * float(g64[0].abs().max())
-                rows = [int(((x.double() - g64[0]).abs() > big).any(1).sum())
-                        for x in (grads[0], gref[0])]
-                e64["da rows off (kernel/plain)"] = tuple(rows)
-                del g64
+                                         tol_bwd, off, scale)
+                if off and bf16 and name in ("dgamma", "dbeta") and \
+                        e64[name][0] <= e64[name][1]:
+                    off = []       # a cancelling sum, kernel nearer f64
+                bad += off
+                if scale.numel():
+                    rel[name] = errs[name] / max(
+                        float(scale.abs().max()), 1e-30)
             e_b = max(errs.values())
+            worst = max(rel, key=rel.get)
             line = (f"pge {tag}: fwd max|Δ| {e_f:.2e}; bwd max|Δ| "
-                    + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
-            if e64:
-                line += ("; |kernel - f64| / |plain fp32 - f64|: "
-                         + ", ".join(f"{k} {a:.3g}/{b:.3g}"
-                                     for k, (a, b) in e64.items()))
+                    + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                    + f" (largest / max|ref|: {rel[worst]:.2e}, {worst})"
+                    + "; |kernel - f64| / |plain - f64|: "
+                    + ", ".join(f"{k} {a:.3g}/{b:.3g}"
+                                for k, (a, b) in e64.items()))
             if main_shape:
                 b = pge_bounds(n, H, L2, bf16)
                 fwd_ms = timed_ms(lambda: K.pge_fwd(*args, n, bf16), 10)
@@ -261,6 +294,10 @@ def compare_kernels(K, stats: dict) -> None:
             log(line)
             del grads, gref, out, ref, ws, stat
             torch.cuda.empty_cache()
+        del g64
+    if bad:
+        fail("kernels disagree with their plain version:\n  "
+             + "\n  ".join(bad))
 
 
 # ---------------------------------------------------------------------------
@@ -376,12 +413,15 @@ def run_gcond(K, ds, save_path: str) -> tuple:
     pge = {name: sum(v for k, v in kern.items() if f"pge::{name}_kernel" in k)
            for name in ("pge_fwd", "pge_bwd")}
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:4]
-    # the profiler's own host overhead stretches the profiled epoch, so
-    # the idle share is taken against the unprofiled epoch 1 (same work)
+    # the profiler's own host overhead stretches the profiled epoch's wall
+    # time, so the idle share is an estimate across two epochs of the same
+    # work: device busy of the profiled epoch 2 over the wall time of the
+    # unprofiled epoch 1
     log(f"gcond profile (epoch 2, {args.outer_loop} outer steps, "
         f"torch.profiler): wall {profiled['wall_ms']:.1f} ms under the "
-        f"profiler, device busy {busy:.1f} ms (idle share against the "
-        f"unprofiled epoch 1: {1 - busy / (epoch_s[1] * 1e3):.3f}); "
+        f"profiler, device busy {busy:.1f} ms (idle share estimated as "
+        f"1 - busy(epoch 2) / wall(unprofiled epoch 1): "
+        f"{1 - busy / (epoch_s[1] * 1e3):.3f}); "
         f"pge_fwd {pge['pge_fwd']:.1f} ms, pge_bwd {pge['pge_bwd']:.1f} ms "
         f"({(pge['pge_fwd'] + pge['pge_bwd']) / busy:.3f} of busy); top: "
         + "; ".join(f"{k[:48]} {v:.1f} ms" for k, v in top))

@@ -3,7 +3,8 @@
 The port keeps the JAX package's parameter layout (a linear's ``w`` is
 ``[in, out]``), so conversion is a walk that turns every array into a
 float32 tensor.  Both functions take numpy arrays (``np.asarray`` of the
-JAX leaves), so this module never imports JAX.
+JAX leaves), so this module never imports JAX.  The tensors land on the
+CUDA card unless ``device`` says otherwise.
 """
 
 from __future__ import annotations
@@ -11,12 +12,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from graphslim_tpu_torch.utils import resolve_device
+
 
 def _t(x, device) -> torch.Tensor:
-    return torch.as_tensor(np.array(x, dtype=np.float32), device=device)
+    return torch.as_tensor(np.array(x, dtype=np.float32),
+                           device=resolve_device(device))
 
 
-def pge_params_from_jax(tree: dict, device="cpu") -> dict:
+def pge_params_from_jax(tree: dict, device=None) -> dict:
     """JAX PGE params ``{"layers": [{"w", "b"}], "bns": [{"scale",
     "bias"}]}`` → the port's, same structure."""
     return {
@@ -27,7 +31,7 @@ def pge_params_from_jax(tree: dict, device="cpu") -> dict:
     }
 
 
-def model_params_from_jax(name: str, tree: dict, device="cpu") -> dict:
+def model_params_from_jax(name: str, tree: dict, device=None) -> dict:
     """JAX SGC/GCN params (``{"layers": [{"w", "b"}], "bns"?: [...]}``)
     → the port's."""
     if name not in ("SGC", "GCN"):

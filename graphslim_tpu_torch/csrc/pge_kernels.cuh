@@ -44,9 +44,16 @@
 // backward twice that (dW and dX).  The forward's function is the 7.3 MB
 // of scores, so it is bound by operations; the backward reads the 1.9 GB
 // workspace as an input, 0.56 ms at 3.35 TB/s, so it is bound by bytes
-// (recomputing instead would cost 0.73 ms of operations).  The per-pair passes (statistics, BatchNorm backward)
-// stream each tile's 2 MB of activations through device memory several
-// times more; PERF.md holds the measured times.
+// (recomputing instead would cost 0.73 ms of operations).  The per-pair
+// passes (statistics, BatchNorm backward) stream each tile's 2 MB of
+// activations through device memory several times more; PERF.md holds
+// the measured times.
+//
+// tools/pge_kernel_phases.py builds a diagnostic copy of this file by
+// exact text replacement: it guards the statements listed in its GUARDS,
+// A_LOAD and B_LOAD with a runtime skip mask.  A change to any of those
+// lines updates that tool in the same change (it stops with "not found"
+// otherwise).
 
 #pragma once
 

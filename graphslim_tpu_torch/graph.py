@@ -16,6 +16,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from graphslim_tpu_torch.utils import resolve_device
+
 
 @dataclasses.dataclass
 class SparseAdj:
@@ -124,11 +126,11 @@ def host_gcn_norm(h: HostAdj) -> HostAdj:
     return HostAdj(np.cumsum(indptr), row, col, vn)
 
 
-def from_edge_index(edge_index: np.ndarray, n_nodes: int,
-                    edge_weight: Optional[np.ndarray] = None,
-                    symmetrize: bool = False, dedup: bool = True,
-                    device="cpu", return_host: bool = False):
-    """Row-sorted SparseAdj from a [2, E] edge index (host-side build)."""
+def host_from_edge_index(edge_index: np.ndarray, n_nodes: int,
+                         edge_weight: Optional[np.ndarray] = None,
+                         symmetrize: bool = False,
+                         dedup: bool = True) -> HostAdj:
+    """Row-sorted HostAdj from a [2, E] edge index."""
     ei = np.asarray(edge_index)
     row, col = ei[0].astype(np.int64), ei[1].astype(np.int64)
     w = None if edge_weight is None else np.asarray(edge_weight)
@@ -152,15 +154,25 @@ def from_edge_index(edge_index: np.ndarray, n_nodes: int,
     indptr = np.zeros(n_nodes + 1, dtype=np.int64)
     np.add.at(indptr, row + 1, 1)
     indptr = np.cumsum(indptr)
-    host = HostAdj(indptr, row.astype(np.int64), col.astype(np.int64),
+    return HostAdj(indptr, row.astype(np.int64), col.astype(np.int64),
                    None if w is None else w.astype(np.float32))
-    if return_host:
-        return host.to_sparse(device), host
-    return host.to_sparse(device)
 
 
-def submatrix(adj: HostAdj, idx: np.ndarray, device="cpu") -> SparseAdj:
-    """adj[np.ix_(idx, idx)] — induced subgraph (host-side)."""
+def from_edge_index(edge_index: np.ndarray, n_nodes: int,
+                    edge_weight: Optional[np.ndarray] = None,
+                    symmetrize: bool = False, dedup: bool = True,
+                    device=None, return_host: bool = False):
+    """Row-sorted SparseAdj from a [2, E] edge index (host-side build),
+    on the CUDA card unless ``device`` says otherwise."""
+    host = host_from_edge_index(edge_index, n_nodes, edge_weight,
+                                symmetrize, dedup)
+    adj = host.to_sparse(resolve_device(device))
+    return (adj, host) if return_host else adj
+
+
+def submatrix(adj: HostAdj, idx: np.ndarray, device=None) -> SparseAdj:
+    """adj[np.ix_(idx, idx)] — induced subgraph (host-side), on the CUDA
+    card unless ``device`` says otherwise."""
     idx = np.asarray(idx)
     lookup = -np.ones(adj.n_rows, dtype=np.int64)
     lookup[idx] = np.arange(idx.shape[0])
@@ -185,9 +197,8 @@ def add_self_loops(adj: HostAdj, fill_value: float = 1.0) -> HostAdj:
     row = np.concatenate([row, loop])
     col = np.concatenate([col, loop])
     val = np.concatenate([val, np.full(n, fill_value, dtype=val.dtype)])
-    _, host = from_edge_index(np.stack([row, col]), n, edge_weight=val,
-                              dedup=True, return_host=True)
-    return host
+    return host_from_edge_index(np.stack([row, col]), n, edge_weight=val,
+                                dedup=True)
 
 
 def gcn_norm(adj: SparseAdj, add_loops: bool = True) -> SparseAdj:

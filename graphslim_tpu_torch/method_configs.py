@@ -2,30 +2,12 @@
 
 The port's own copy of the ``gcond`` table of
 ``graphslim_tpu/method_configs.py`` (the reference's JSON config tree,
-``graphslim/configs/<method>/<dataset>.json``).  Tables of methods that are
-not ported yet are left out with their methods.
+``graphslim/configs/<method>/<dataset>.json``).  Tables of methods and
+datasets that are not ported yet are left out with them.
 """
 
 METHOD_CONFIGS = \
-{'gcond': {'amazon': {'condense_model': 'SGC',
-                      'dis_metric': 'ours',
-                      'inner_loop': 15,
-                      'lr_adj': 0.0001,
-                      'lr_feat': 0.0001,
-                      'ntrans': 1,
-                      'outer_loop': 20,
-                      'pre_norm': True,
-                      'threshold': 0.05},
-           'citeseer': {'condense_model': 'SGC',
-                        'dis_metric': 'ours',
-                        'inner_loop': 15,
-                        'lr_adj': 0.0001,
-                        'lr_feat': 0.0001,
-                        'ntrans': 1,
-                        'outer_loop': 20,
-                        'pre_norm': True,
-                        'threshold': 0.05},
-           'cora': {'condense_model': 'SGC',
+{'gcond': {'cora': {'condense_model': 'SGC',
                     'dis_metric': 'ours',
                     'inner_loop': 15,
                     'lr_adj': 0.0001,
@@ -34,14 +16,6 @@ METHOD_CONFIGS = \
                     'outer_loop': 20,
                     'pre_norm': True,
                     'threshold': 0.05},
-           'flickr': {'condense_model': 'SGC',
-                      'dis_metric': 'ours',
-                      'inner_loop': 1,
-                      'lr_adj': 0.005,
-                      'lr_feat': 0.005,
-                      'ntrans': 2,
-                      'outer_loop': 10,
-                      'threshold': 0.01},
            'ogbn-arxiv': {'condense_model': 'SGC',
                           'dis_metric': 'ours',
                           'epochs': 600,
@@ -50,31 +24,4 @@ METHOD_CONFIGS = \
                           'lr_feat': 0.01,
                           'ntrans': 2,
                           'outer_loop': 20,
-                          'threshold': 0.01},
-           'pubmed': {'condense_model': 'SGC',
-                      'dis_metric': 'ours',
-                      'inner_loop': 15,
-                      'lr_adj': 0.0001,
-                      'lr_feat': 0.0001,
-                      'ntrans': 1,
-                      'outer_loop': 20,
-                      'pre_norm': True,
-                      'threshold': 0.05},
-           'reddit': {'condense_model': 'SGC',
-                      'dis_metric': 'ours',
-                      'epochs': 1000,
-                      'inner_loop': 1,
-                      'lr_adj': 0.1,
-                      'lr_feat': 0.1,
-                      'ntrans': 1,
-                      'outer_loop': 10,
-                      'threshold': 0.01},
-           'yelp': {'condense_model': 'SGC',
-                    'dis_metric': 'ours',
-                    'inner_loop': 15,
-                    'lr_adj': 0.0001,
-                    'lr_feat': 0.0001,
-                    'ntrans': 1,
-                    'outer_loop': 20,
-                    'pre_norm': True,
-                    'threshold': 0.05}}}
+                          'threshold': 0.01}}}

@@ -36,7 +36,8 @@ def test_fit_with_val_matches_jax(twins, name):
     jmodel = JM.get_model(name, JM.ModelConfig(**cfg))
     jp0 = jmodel.init(jax.random.key(0))
     tmodel = M.get_model(name, M.ModelConfig(**cfg))
-    tp0 = model_params_from_jax(name, jax.tree.map(np.asarray, jp0))
+    tp0 = model_params_from_jax(name, jax.tree.map(np.asarray, jp0),
+                                device="cpu")
 
     def batch(ds, norm, idx, arr):
         i = arr(idx)

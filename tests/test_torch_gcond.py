@@ -78,7 +78,7 @@ def engines(tmp_path_factory):
 def _patched(e):
     """Inject the same blocks and model init into both engines; the JAX
     PGE runs its pure-JAX tile oracle."""
-    mp_t = model_params_from_jax("SGC", _np(e["mp_j"]))
+    mp_t = model_params_from_jax("SGC", _np(e["mp_j"]), device="cpu")
     return [
         mock.patch.object(pp, "pair_scores",
                           lambda *a, **kw: pp.pair_scores_ref(*a[:8])),
@@ -125,7 +125,8 @@ def test_match_loss_total_and_gradients_agree(engines):
             jnp.asarray(e["feat"]), e["pge_j"])
         mp_t = teng.model.init(None)
         fs = torch.tensor(e["feat"], requires_grad=True)
-        pg = utils.trainable(pge_params_from_jax(_np(e["pge_j"])))
+        pg = utils.trainable(pge_params_from_jax(_np(e["pge_j"]),
+                                                 device="cpu"))
         loss_t = teng.match_loss_total(mp_t, fs, teng.syn_adj_norm(pg, fs),
                                        teng.gen)
         grads = torch.autograd.grad(loss_t, [fs] + utils.tree_leaves(pg))
@@ -162,7 +163,8 @@ def test_outer_steps_with_adam_agree(engines, update_pge):
             jax.random.key(5), fs_j, e["pge_j"], jeng.opt_feat.init(fs_j),
             jeng.opt_pge.init(e["pge_j"]), jeng.real)
         fs = torch.tensor(e["feat"], requires_grad=True)
-        pg = utils.trainable(pge_params_from_jax(_np(e["pge_j"])))
+        pg = utils.trainable(pge_params_from_jax(_np(e["pge_j"]),
+                                                 device="cpu"))
         loss_t = teng._epoch(fs, pg, teng.opt_feat.init([fs]),
                              teng.opt_pge.init(utils.tree_leaves(pg)),
                              update_pge)

@@ -67,6 +67,44 @@ def test_entry_points_default_to_the_card():
         run(finalize(Args(dataset="synth-hard", method="gcond")))
 
 
+def _tiny_builders():
+    import numpy as np
+
+    from graphslim_tpu_torch import graph as G
+    from graphslim_tpu_torch import convert
+
+    ei = np.array([[0, 1, 2], [1, 2, 0]])
+    host = G.host_from_edge_index(ei, 3)
+    lin = {"layers": [{"w": np.ones((2, 2)), "b": np.zeros(2)}]}
+    return {
+        "from_edge_index": lambda: G.from_edge_index(ei, 3),
+        "submatrix": lambda: G.submatrix(host, np.array([0, 1])),
+        "pge_params_from_jax": lambda: convert.pge_params_from_jax(
+            dict(lin, bns=[{"scale": np.ones(2), "bias": np.zeros(2)}])),
+        "model_params_from_jax": lambda: convert.model_params_from_jax(
+            "SGC", lin),
+    }
+
+
+@pytest.mark.parametrize("name", ["from_edge_index", "submatrix",
+                                  "pge_params_from_jax",
+                                  "model_params_from_jax"])
+def test_tensor_builders_default_to_the_card(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _tiny_builders()[name]()
+
+
+@pytest.mark.parametrize("flag", ["--dropout", "--with_bn",
+                                  "--weight_decay"])
+def test_cli_rejects_options_nothing_reads(flag, tmp_path):
+    from graphslim_tpu_torch.config import get_args
+
+    with pytest.raises(SystemExit):
+        get_args(["--save_path", str(tmp_path), flag, "1"])
+
+
 def test_unported_names_raise_with_their_roadmap_item():
     from graphslim_tpu_torch import models as M
     from graphslim_tpu_torch.reduce import create_reducer

@@ -54,12 +54,13 @@ def test_forward_with_carried_weights_matches_jax(name, adj_kind):
                ntrans=2)
     jmodel = JM.get_model(name, JM.ModelConfig(**cfg))
     jparams = jmodel.init(jax.random.key(1))
-    tparams = model_params_from_jax(name, jax.tree.map(np.asarray,
-                                                       jparams))
+    tparams = model_params_from_jax(name, jax.tree.map(np.asarray, jparams),
+                                    device="cpu")
     tmodel = M.get_model(name, M.ModelConfig(**cfg))
     if adj_kind == "full":
         want = jmodel.apply(jparams, jnp.asarray(x), jnorm)
-        tnorm = G.gcn_norm(G.from_edge_index(ei, n, symmetrize=True))
+        tnorm = G.gcn_norm(G.from_edge_index(ei, n, symmetrize=True,
+                                             device="cpu"))
         got = tmodel.apply(tparams, torch.tensor(x), tnorm)
     else:
         row, col = np.asarray(jnorm.row), np.asarray(jnorm.col)
@@ -87,7 +88,8 @@ def _tables(n=24, seed=0):
     ei = np.concatenate([np.stack([src, (src + 1) % n]),
                          np.stack([src, (src + 5) % n]),
                          rng.integers(0, n, size=(2, 40))], axis=1)
-    norm = G.gcn_norm(G.from_edge_index(ei, n, symmetrize=True))
+    norm = G.gcn_norm(G.from_edge_index(ei, n, symmetrize=True,
+                                        device="cpu"))
     row, col, val = norm.row.numpy(), norm.col.numpy(), norm.val.numpy()
     indptr, co, vo, sv = _split_self(row, col, val, n)
     return norm, indptr, build_packed_csr(indptr, co, vo, sv, "cpu"), sv
@@ -142,7 +144,8 @@ def test_blocks_equal_full_aggregation_at_max_fanout(name):
     in another order: 1e-5)."""
     ei, x = _graph(seed=3)
     n = x.shape[0]
-    norm = G.gcn_norm(G.from_edge_index(ei, n, symmetrize=True))
+    norm = G.gcn_norm(G.from_edge_index(ei, n, symmetrize=True,
+                                        device="cpu"))
     row, col, val = norm.row.numpy(), norm.col.numpy(), norm.val.numpy()
     indptr, co, vo, sv = _split_self(row, col, val, n)
     max_deg = int(np.diff(indptr).max())
@@ -163,7 +166,8 @@ def test_batched_params_give_per_class_forwards():
     port's stand-in for vmap): slice c equals the forward with params c."""
     ei, x = _graph(seed=4)
     n = x.shape[0]
-    norm = G.gcn_norm(G.from_edge_index(ei, n, symmetrize=True)).to_dense()
+    norm = G.gcn_norm(G.from_edge_index(ei, n, symmetrize=True,
+                                        device="cpu")).to_dense()
     model = M.get_model("SGC", M.ModelConfig(nfeat=x.shape[1], nhid=8,
                                              nclass=3, ntrans=2))
     gen = torch.Generator().manual_seed(0)

@@ -101,7 +101,8 @@ def test_pge_apply_matches_jax_tile_semantics(n):
     with mock.patch.object(pp, "pair_scores",
                            lambda *a, **kw: pp.pair_scores_ref(*a[:8])):
         want = np.asarray(jpge.apply(jparams, jnp.asarray(x)))
-    tparams = pge_params_from_jax(jax.tree.map(np.asarray, jparams))
+    tparams = pge_params_from_jax(jax.tree.map(np.asarray, jparams),
+                                  device="cpu")
     tpge = PGE(PGEConfig(nfeat=d, nnodes=n, nhid=nhid, mm_bf16=False))
     got = tpge.apply(tparams, torch.tensor(x)).detach().numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)

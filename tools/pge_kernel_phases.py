@@ -60,6 +60,9 @@ B_LOAD = "      [&](int k, int n) { return W[(size_t)k * H + n]; },"
 
 def diagnostic_source(variant: str) -> str:
     src = open(os.path.join(CSRC, "pge_kernels.cuh")).read()
+    for stmt in (A_LOAD, B_LOAD):
+        if stmt not in src:
+            raise SystemExit(f"pge_kernel_phases: not found: {stmt!r}")
     src = src.replace("namespace pge {",
                       "namespace pge {\n__device__ int g_skip;", 1)
     for stmt, bit in GUARDS.items():
