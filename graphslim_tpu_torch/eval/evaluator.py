@@ -2,8 +2,9 @@
 
 Counterpart of ``graphslim_tpu/eval/evaluator.py`` for SGC and GCN on
 transductive datasets.  The JAX package vmaps the seeded runs into one
-program; here they run one after another.  The full graph's normalized
-adjacency is a CSR view for ``torch.sparse.mm``.
+program; here they run one after another.  Sparse adjacencies (the full
+graph's, a coreset's subgraph) are passed as ``SparseAdj``, whose
+``matmul`` is the SpMM dispatch.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ class Evaluator:
         if adj is None:
             adj_n = None
         elif isinstance(adj, G.SparseAdj):
-            adj_n = G.gcn_norm(adj).to_csr().to(dev)
+            adj_n = G.gcn_norm(adj).to(dev)
         else:
             adj_n = G.normalize_adj_dense(adj.to(dev))
         return red.feat.to(dev), adj_n, red.labels.to(dev)
@@ -60,7 +61,7 @@ class Evaluator:
         """The full graph with the labels of the rows in ``idx``."""
         d = self.data
         idx_t = torch.as_tensor(idx, device=d.device)
-        return (d.feat, d.adj_norm().to_csr(), d.labels[idx_t], idx_t)
+        return (d.feat, d.adj_norm(), d.labels[idx_t], idx_t)
 
     def evaluate(self, reduced: G.Reduced, model_type: str = "GCN",
                  runs: Optional[int] = None, seed: Optional[int] = None,

@@ -2,10 +2,11 @@
 
 Counterpart of ``graphslim_tpu/graph.py``.  :class:`SparseAdj` keeps both
 the CSR (``indptr``/``col``) and the row-sorted COO (``row``/``col``/``val``)
-views as torch tensors; its product with a dense matrix goes through a
-torch sparse CSR view (``torch.sparse.mm``).  Load-time work (building,
-normalizing, submatrices) is host NumPy, as in the JAX package, and the
-result is moved to the dataset's device once.
+views as torch tensors; its product with a dense matrix goes through
+:func:`graphslim_tpu_torch.kernels.spmm.spmm` (on the card: the blocked
+SpMM kernel over a layout cached on the adjacency).  Load-time work
+(building, normalizing, submatrices, layouts) is host NumPy, as in the JAX
+package, and the result is moved to the dataset's device once.
 """
 
 from __future__ import annotations
@@ -16,6 +17,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from graphslim_tpu_torch.kernels import spmm_blocked as _blocked
+from graphslim_tpu_torch.kernels.segment import segment_sum
+from graphslim_tpu_torch.kernels.spmm import spmm as _spmm
 from graphslim_tpu_torch.utils import resolve_device
 
 
@@ -31,6 +35,8 @@ class SparseAdj:
     row: torch.Tensor           # [nnz] int64, sorted
     col: torch.Tensor           # [nnz] int64
     val: Optional[torch.Tensor]  # [nnz] float32 or None
+    _layouts: dict = dataclasses.field(default_factory=dict, repr=False,
+                                       compare=False)
 
     @property
     def n_rows(self) -> int:
@@ -53,15 +59,55 @@ class SparseAdj:
     def with_val(self, val: torch.Tensor) -> "SparseAdj":
         return SparseAdj(self.indptr, self.row, self.col, val)
 
+    def to(self, device) -> "SparseAdj":
+        if torch.device(device) == self.device:
+            return self
+        return SparseAdj(self.indptr.to(device), self.row.to(device),
+                         self.col.to(device),
+                         None if self.val is None else self.val.to(device))
+
     def to_csr(self, n_cols: Optional[int] = None) -> torch.Tensor:
-        """torch sparse CSR view (no copy of the index arrays)."""
+        """torch sparse CSR view (no copy of the index arrays), for
+        callers that want the library's product; nothing here does."""
         n_cols = self.n_rows if n_cols is None else n_cols
         return torch.sparse_csr_tensor(
             self.indptr, self.col, self.values_or_ones(),
             size=(self.n_rows, n_cols), check_invariants=False)
 
+    def blocked(self, transpose: bool = False, **sizes):
+        """Cached blocked layout of this (square) matrix, or of its
+        transpose, for the blocked SpMM; built on the host once per
+        adjacency and tile sizes (``td``, ``ts``, ``chunk``,
+        ``stage_min``).  A symmetric matrix shares one layout."""
+        key = (transpose,) + tuple(sorted(sizes.items()))
+        if key not in self._layouts:
+            h = host_of(self)
+            csr = (h.indptr, h.col, h.val)
+            if transpose:
+                csr_t = _blocked.transpose_csr(*csr)
+                same = all(a is b or np.array_equal(a, b)
+                           for a, b in zip(csr, csr_t))
+                self._layouts[key] = self.blocked(**sizes) if same else \
+                    _blocked.build_blocked(*csr_t, device=self.device,
+                                           **sizes)
+            else:
+                self._layouts[key] = _blocked.build_blocked(
+                    *csr, device=self.device, **sizes)
+        return self._layouts[key]
+
     def matmul(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.sparse.mm(self.to_csr(), x)
+        """A @ x through the SpMM dispatch."""
+        return _spmm(self, x)
+
+    def rmatmul(self, x: torch.Tensor, n_cols: int) -> torch.Tensor:
+        """A.T @ x (segment sum over col)."""
+        gathered = x.index_select(0, self.row)
+        if self.val is not None:
+            gathered = gathered * self.val.to(gathered.dtype).unsqueeze(-1)
+        return segment_sum(gathered, self.col, n_cols)
+
+    def sum_rows(self) -> torch.Tensor:
+        return segment_sum(self.values_or_ones(), self.row, self.n_rows)
 
     def to_dense(self, n_cols: Optional[int] = None) -> torch.Tensor:
         n_cols = self.n_rows if n_cols is None else n_cols
@@ -297,7 +343,8 @@ class Dataset:
 
     def adj_norm(self) -> SparseAdj:
         """Cached GCN-normalized full adjacency (with self loops) on the
-        dataset's device; its ``matmul`` is the CSR SpMM."""
+        dataset's device; its ``matmul`` is the SpMM dispatch, and its
+        blocked layout is cached on it."""
         if self._adj_norm is None:
             self._adj_norm = self.adj_norm_host().to_sparse(self.device)
         return self._adj_norm

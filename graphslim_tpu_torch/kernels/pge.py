@@ -32,25 +32,17 @@ ctypes; ``LAUNCHES`` counts each kernel's launches.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 from torch.autograd.function import once_differentiable
+
+from graphslim_tpu_torch.kernels.build import load_library
 
 TI = 16           # score-tile rows    (csrc/pge_kernels.cuh: pge::TI)
 TJ = 128          # score-tile columns (pge::TJ)
 P = TI * TJ       # pairs per tile: the BatchNorm population
 EPS = 1e-5        # BatchNorm epsilon
 _H_MULTIPLE = 64  # the kernels' matmul tile width (pge::BN)
-
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("pge.cu", "pge_kernels.cuh")
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 LAUNCHES = {"pge_fwd": 0, "pge_bwd": 0}
 
@@ -77,43 +69,16 @@ def _cdiv(a: int, b: int) -> int:
 # Build and binding
 # ---------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the PGE kernels cannot be built")
-    return path
-
-
 def build() -> ctypes.CDLL:
     """Compile the kernels (once per source version) and load them.
 
-    The library is named by a hash of the sources, so an edited source is
-    rebuilt; ``BUILD_INFO`` records the path, the build seconds (0 when an
-    existing build was reused) and nvcc's ``-Xptxas -v`` report.
+    ``BUILD_INFO`` records the library's path, the build seconds (0 when
+    an existing build was reused) and nvcc's ``-Xptxas -v`` report.
     """
     global _LIB
     if _LIB is not None:
         return _LIB
-    digest = hashlib.sha256(b"".join(
-        (_CSRC / s).read_bytes() for s in _SOURCES)).hexdigest()[:16]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"libpge_{digest}.so"
-    log = BUILD_DIR / f"libpge_{digest}.log"
-    seconds = 0.0
-    if not so.exists():
-        tmp = BUILD_DIR / f".libpge_{digest}.{os.getpid()}.so"
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp), str(_CSRC / "pge.cu")]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log.write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError("nvcc failed for the PGE kernels:\n"
-                               + (res.stdout + res.stderr)[-4000:])
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib, info = load_library("pge")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.pge_fwd.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
     lib.pge_fwd.restype = i32
@@ -121,8 +86,7 @@ def build() -> ctypes.CDLL:
     lib.pge_bwd.restype = i32
     lib.pge_blocks_per_sm.argtypes = [i32, i32, ctypes.POINTER(i32)]
     lib.pge_blocks_per_sm.restype = i32
-    BUILD_INFO.update(path=str(so), seconds=seconds,
-                      report=log.read_text() if log.exists() else "")
+    BUILD_INFO.update(info)
     _LIB = lib
     return lib
 

@@ -2,8 +2,8 @@
 
 Counterpart of ``graphslim_tpu/models/base.py``.  ``aggregate`` takes:
 
-* :class:`graphslim_tpu_torch.graph.SparseAdj` or a torch sparse CSR
-  tensor — ``torch.sparse.mm``;
+* :class:`graphslim_tpu_torch.graph.SparseAdj` — its ``matmul``, the SpMM
+  dispatch (on the card: the blocked SpMM kernel);
 * a dense ``[n, n]`` tensor — matmul (synthetic condensed graphs; ``x``
   may carry a leading batch axis);
 * :class:`graphslim_tpu_torch.kernels.sample.BlockSample` — the
@@ -28,8 +28,6 @@ def aggregate(adj: Any, x: torch.Tensor) -> torch.Tensor:
         return x
     if isinstance(adj, G.SparseAdj):
         return adj.matmul(x)
-    if adj.layout == torch.sparse_csr:
-        return torch.sparse.mm(adj, x)
     return torch.matmul(adj, x)
 
 

@@ -9,10 +9,17 @@ from __future__ import annotations
 
 import importlib
 
-# name → (module under graphslim_tpu_torch.reduce, class)
+# name → (module under graphslim_tpu_torch.reduce, class, class of the
+# aggregated-features variant that ``args.agg`` selects, or None)
 _PORTED = {
-    "random": ("coreset", "Random"),
-    "gcond": ("gcond", "GCond"),
+    "random": ("coreset", "Random", "RandomAgg"),
+    "kcenter": ("coreset", "KCenter", "KCenterAgg"),
+    # kcenter_sample's select() is identical to kcenter upstream
+    "kcenter_sample": ("coreset", "KCenter", None),
+    "herding": ("coreset", "Herding", "HerdingAgg"),
+    "cent_d": ("coreset", "CentD", None),
+    "cent_p": ("coreset", "CentP", None),
+    "gcond": ("gcond", "GCond", None),
 }
 
 # name → ROADMAP.md queue-1 item that ports it
@@ -20,8 +27,7 @@ _QUEUED = {
     **{m: 5 for m in ("doscond", "gcondx", "doscondx")},
     **{m: 9 for m in ("gcdm", "gcdmx", "sgdd", "msgc", "sfgc", "geom",
                       "gcsntk", "simgc", "gdem", "gecc", "mirage")},
-    **{m: 10 for m in ("kcenter", "kcenter_sample", "herding", "cent_d",
-                       "cent_p", "clustering", "averaging", "vng")},
+    **{m: 10 for m in ("clustering", "averaging", "vng")},
     **{m: 11 for m in ("random_edge", "g_spar", "local_degree", "scan",
                        "spanning_forest", "rank_degree", "t_spanner",
                        "variation_neighborhoods", "variation_edges",
@@ -35,7 +41,8 @@ _ALIASES = {"algebraic_JC": "algebraic_jc", "affinity_GS": "affinity_gs",
 
 
 def create_reducer(method: str, data, args, **kwargs):
-    """Instantiate a reducer on ``data``'s device; ``kwargs`` (e.g.
+    """Instantiate a reducer on ``data``'s device (``args.agg`` selects
+    the aggregated-features variant of a coreset); ``kwargs`` (e.g.
     ``labels_syn_override``) pass through to the reducer."""
     method = _ALIASES.get(method, method)
     if method in _QUEUED:
@@ -45,6 +52,8 @@ def create_reducer(method: str, data, args, **kwargs):
     if method not in _PORTED:
         raise ValueError(f"Unknown reduction method {method!r}; "
                          f"available: {sorted(_PORTED)}")
-    module, cls = _PORTED[method]
+    module, cls, agg_cls = _PORTED[method]
+    if getattr(args, "agg", False) and agg_cls is not None:
+        cls = agg_cls
     mod = importlib.import_module(f"graphslim_tpu_torch.reduce.{module}")
     return getattr(mod, cls)(data, args, **kwargs)

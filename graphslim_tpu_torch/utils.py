@@ -1,7 +1,7 @@
 """Shared utilities: device resolution, seeding, losses, metrics, Adam.
 
-Counterpart of ``graphslim_tpu/utils.py`` (only what the GCond → SGC path
-needs).  ``Adam`` is written out so its arithmetic is exactly optax's
+Counterpart of ``graphslim_tpu/utils.py`` (only what the ported paths
+need).  ``Adam`` is written out so its arithmetic is exactly optax's
 ``adam``: bias-corrected moments and ``eps`` added after the square root.
 """
 
@@ -91,6 +91,14 @@ def nll_loss(log_probs: torch.Tensor, labels: torch.Tensor,
         m = mask.to(ll.dtype)
         return -(ll * m).sum(-1) / torch.clamp(m.sum(-1), min=1.0)
     return -ll.mean(-1)
+
+
+def cdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pairwise Euclidean distances [n_a, n_b] by the expansion
+    ‖a‖² + ‖b‖² − 2·a·bᵀ (the JAX package's formula, so argmins agree)."""
+    a2 = (a * a).sum(1)[:, None]
+    b2 = (b * b).sum(1)[None, :]
+    return torch.sqrt(torch.clamp(a2 + b2 - 2 * (a @ b.T), min=0.0))
 
 
 # ---------------------------------------------------------------------------

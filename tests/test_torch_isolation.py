@@ -65,6 +65,8 @@ def test_entry_points_default_to_the_card():
                      / "arxiv_gcond_r0.01.npz"))
     with pytest.raises(RuntimeError, match="CUDA"):
         run(finalize(Args(dataset="synth-hard", method="gcond")))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run(finalize(Args(dataset="synth-hard", method="kcenter")))
 
 
 def _tiny_builders():
@@ -72,6 +74,7 @@ def _tiny_builders():
 
     from graphslim_tpu_torch import graph as G
     from graphslim_tpu_torch import convert
+    from graphslim_tpu_torch.kernels.spmm_blocked import build_blocked
 
     ei = np.array([[0, 1, 2], [1, 2, 0]])
     host = G.host_from_edge_index(ei, 3)
@@ -83,12 +86,15 @@ def _tiny_builders():
             dict(lin, bns=[{"scale": np.ones(2), "bias": np.zeros(2)}])),
         "model_params_from_jax": lambda: convert.model_params_from_jax(
             "SGC", lin),
+        "build_blocked": lambda: build_blocked(host.indptr, host.col,
+                                               host.val),
     }
 
 
 @pytest.mark.parametrize("name", ["from_edge_index", "submatrix",
                                   "pge_params_from_jax",
-                                  "model_params_from_jax"])
+                                  "model_params_from_jax",
+                                  "build_blocked"])
 def test_tensor_builders_default_to_the_card(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
@@ -113,6 +119,33 @@ def test_unported_names_raise_with_their_roadmap_item():
         M.get_model("GAT", M.ModelConfig(nfeat=4, nhid=4, nclass=2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_reducer("doscond", None, None)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        create_reducer("clustering", None, None)
+
+
+@pytest.mark.parametrize("wrapper", ["spmm_blocked", "smem_gather"])
+def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
+    """A kernel's wrapper launches or raises; only the dispatch above it
+    takes the plain version, and only for a CPU tensor."""
+    import numpy as np
+
+    from graphslim_tpu_torch import graph as G
+    from graphslim_tpu_torch.kernels import smem_gather, spmm_blocked
+
+    x = torch.ones(3, 4)
+    if wrapper == "spmm_blocked":
+        adj = G.from_edge_index(np.array([[0, 1, 2], [1, 2, 0]]), 3,
+                                device="cpu")
+        with pytest.raises(ValueError, match="CUDA"):
+            spmm_blocked.spmm_blocked_cuda(adj.blocked(), x)
+        assert torch.equal(adj.matmul(x), x)
+        assert spmm_blocked.LAUNCHES["spmm_blocked"] == 0
+    else:
+        idx = torch.tensor([2, 0])
+        with pytest.raises(ValueError, match="CUDA"):
+            smem_gather.gather_rows_cuda(x, idx)
+        assert torch.equal(smem_gather.gather_rows(x, idx), x[idx])
+        assert smem_gather.LAUNCHES["smem_gather"] == 0
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -33,6 +33,7 @@ import torch  # noqa: E402
 
 import chip_smoke as CS  # noqa: E402
 from graphslim_tpu_torch.kernels import pge as K  # noqa: E402
+from graphslim_tpu_torch.kernels.build import nvcc  # noqa: E402
 
 N, H = 1354, 256
 CSRC = os.path.join(HERE, "graphslim_tpu_torch", "csrc")
@@ -92,7 +93,7 @@ def build_variant(variant: str) -> str:
         f.write(cu)
     so = os.path.join(d, "libpge_phases.so")
     res = subprocess.run(
-        [K._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+        [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
          "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", so,
          os.path.join(d, "pge.cu")], capture_output=True, text=True)
     if res.returncode != 0:
