@@ -21,10 +21,12 @@ line of output each, any failed check raises (non-zero exit):
 6. the shared-memory row gather against ``torch.index_select`` (exact), at
    the TPU probe's shape (x 4096 × 128, 32,768 indices) for the source
    tile sizes the blocked SpMM considers, staged and direct, with its
-   rates, and at the shape the coreset path gives it;
+   rates, and at the shapes the coreset path gives it (every class's pool
+   of the twin's training nodes out of 40- and 128-wide embeddings, then
+   the 1336 selected rows);
 7. the blocked SpMM kernel against its plain version and a float64
    product: (a) n = 500, d = 16, td = ts = 128; (b) the arxiv twin's
-   normalized adjacency at d = 128, 256 and 40, forward and backward,
+   normalized adjacency at d = 128, 256, 40 and 129, forward and backward,
    timed beside its bound and ``torch.sparse.mm``; (c) ragged graphs with
    empty rows and a row heavier than a tile; each result must repeat bit
    for bit;
@@ -33,7 +35,9 @@ line of output each, any failed check raises (non-zero exit):
    GCN, ``herding`` with ``agg`` and SGC, ``cent_p`` with GCN, 3 seeds
    each, with the kernels' launch counts, a check of the GCN that KCenter
    trains (validation ≥ 0.60; logits through the kernel and through its
-   plain version agree) and a torch.profiler breakdown of one epoch.
+   plain version agree) and a torch.profiler breakdown of one epoch; then
+   the blocked SpMM against its plain version, a float64 product and
+   ``torch.sparse.mm`` on the subgraphs that kcenter and cent_p selected.
 
 Phases 6 and 7 run before phase 4.  The line before the last is the
 ``kernels`` JSON; the last line is ``{"ok": true, "device": {...}}``.
@@ -129,6 +133,26 @@ def median_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     torch.cuda.synchronize()
     times = sorted(a.elapsed_time(b) for a, b in events)
     return times[len(times) // 2]
+
+
+def queued_ms(fn, reps: int = 20) -> float:
+    """Device time of one launch where a launch is shorter than the host
+    code that makes it: the card is kept busy (``torch.cuda._sleep``) while
+    the host queues ``reps`` launches, which then run back to back between
+    one pair of events.  :func:`median_ms` would read the host's time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)      # ≈ 20 ms of device time
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def max_err(got, ref) -> float:
@@ -474,26 +498,29 @@ PROBE_SHAPE = (4096, 128, 32768)     # source rows, width, gathered rows
 PROBE_TS = (64, 128, 256, 448)       # source tiles the SpMM considers
 
 
-def gather_bound_ms(n_src: int, d: int, n_idx: int) -> float:
+def gather_bound_ms(n_src: int, d: int, n_idx: int, idx_bytes: int) -> float:
     """Bytes over HBM bandwidth: the gathered rows written once, the
     indices read once, and the rows of x that the indices can name read
     once (at most all of x)."""
-    nbytes = n_idx * d * 4 + n_idx * 4 + min(n_idx, n_src) * d * 4
+    nbytes = n_idx * d * 4 + n_idx * idx_bytes + min(n_idx, n_src) * d * 4
     return 1e3 * nbytes / PEAK_BYTES
 
 
-def probe_gather(SG, stats: dict, path_shape: tuple) -> None:
+def probe_gather(SG, stats: dict, ds) -> None:
+    import numpy as np
     import torch
+
+    from graphslim_tpu_torch.reduce.base import class_budgets
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     n_src, d, n_idx = PROBE_SHAPE
     x = torch.randn(n_src, d, generator=gen, device="cuda")
     idx = torch.randint(0, n_src, (n_idx,), generator=gen, device="cuda",
                         dtype=torch.int32)
-    ref = SG.gather_rows_plain(x, idx.long())
     idx64 = idx.long()
-    lib_ms = median_ms(lambda: torch.index_select(x, 0, idx64))
-    bound = gather_bound_ms(n_src, d, n_idx)
+    ref = SG.gather_rows_plain(x, idx64)
+    lib_ms = queued_ms(lambda: torch.index_select(x, 0, idx64))
+    bound = gather_bound_ms(n_src, d, n_idx, 4)
     gbytes = bound * 1e-3 * PEAK_BYTES / 1e9
 
     def rate(ms):
@@ -501,40 +528,69 @@ def probe_gather(SG, stats: dict, path_shape: tuple) -> None:
                f"{gbytes / ms * 1e3:.0f} GB/s"
 
     parts = []
-    for mode, sizes in (("staged", PROBE_TS), ("direct", (128,)),
-                        ("auto", (128,))):
-        for ts in sizes:
-            out = SG.gather_rows_cuda(x, idx, ts=ts, mode=mode)
-            torch.cuda.synchronize()
-            if not torch.equal(out, ref):
-                fail(f"gather {mode} ts={ts} differs from index_select")
-            ms = median_ms(
-                lambda: SG.gather_rows_cuda(x, idx, ts=ts, mode=mode))
-            parts.append(f"{mode} ts={ts} {rate(ms)}")
+    for ts in PROBE_TS + (None,):
+        kw = dict(staged=ts is not None, ts=ts)
+        out = SG.gather_rows_cuda(x, idx, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            fail(f"gather {kw} differs from index_select")
+        ms = queued_ms(lambda: SG.gather_rows_cuda(x, idx, **kw))
+        parts.append((f"staged ts={ts} " if ts else "direct ") + rate(ms))
     log(f"gather probe x [{n_src}, {d}] f32, idx [{n_idx}] (source warm in "
-        f"L2), exact; bound {bound:.4f} ms; index_select {rate(lib_ms)}; "
+        f"L2; device time of launches queued back to back), exact; bound "
+        f"{bound:.4f} ms; index_select {rate(lib_ms)}; "
         + "; ".join(parts))
 
-    # the shape the coreset path gives it: a class's pool rows out of the
-    # full graph's hidden embeddings, dispatch in auto mode
-    n_src, d, n_idx = path_shape
-    x = torch.randn(n_src, d, generator=gen, device="cuda")
-    idx = torch.randint(0, n_src, (n_idx,), generator=gen, device="cuda")
-    out = SG.gather_rows(x, idx)
-    torch.cuda.synchronize()
-    ref = SG.gather_rows_plain(x, idx)
-    if not torch.equal(out, ref) or \
-            not torch.equal(out, SG.gather_rows(x, idx)):
-        fail("gather at the path's shape differs from index_select")
-    ms = median_ms(lambda: SG.gather_rows(x, idx))
-    lib_ms = median_ms(lambda: torch.index_select(x, 0, idx))
-    bound = gather_bound_ms(n_src, d, n_idx)
-    stats["smem_gather"] = dict(max_abs_err=0.0, ms=ms, plain_ms=lib_ms,
-                                bound_ms=bound, bound_by="bytes",
-                                library_ms=lib_ms)
-    log(f"gather at the coreset path's shape x [{n_src}, {d}], idx "
-        f"[{n_idx}], auto: exact, {ms:.4f} ms (index_select "
-        f"{lib_ms:.4f} ms, bound {bound:.5f} ms by bytes)")
+    # The calls a coreset run makes (reduce/coreset.py): every class's pool
+    # of training nodes out of the embeddings (KCenter: the full-graph
+    # GCN's logits, [n, nclass]; the agg variants: Â²X, [n, n_feat]), then
+    # the selected rows out of the features.  The pools are the twin's own;
+    # the selection here is each pool's first rows at the reducers' budgets.
+    labels = ds.labels.cpu().numpy()[ds.idx_train]
+    budgets, _, _ = class_budgets(labels, 0.01)
+    pools = [np.asarray(ds.idx_train)[labels == c] for c in budgets]
+    picked = np.concatenate([p[:min(int(k), len(p))]
+                             for p, k in zip(pools, budgets.values())])
+    largest = max(pools, key=len)
+    logits = torch.randn(ds.n_nodes, ds.nclass, generator=gen, device="cuda")
+    calls = [(f"class pool of {ds.nclass}-wide logits", logits, p)
+             for p in pools]
+    calls += [(f"class pool of {ds.n_feat}-wide features", ds.feat, p)
+              for p in pools]
+    calls.append(("selected rows of the features", ds.feat, picked))
+    for what, src, rows in calls:
+        rows = torch.as_tensor(rows, device="cuda")
+        out = SG.gather_rows(src, rows)
+        torch.cuda.synchronize()
+        if not torch.equal(out, SG.gather_rows_plain(src, rows)) or \
+                not torch.equal(out, SG.gather_rows(src, rows)):
+            fail(f"gather of a {what} ({rows.shape[0]} rows) differs from "
+                 f"index_select")
+    parts = []
+    for what, src, rows in ((calls[0][0], logits, largest),
+                            (calls[-2][0], ds.feat, largest),
+                            calls[-1]):
+        rows = torch.as_tensor(rows, device="cuda")
+        ms = queued_ms(lambda: SG.gather_rows(src, rows))
+        lib_ms = queued_ms(lambda: torch.index_select(src, 0, rows))
+        host = median_ms(lambda: SG.gather_rows(src, rows))
+        host_lib = median_ms(lambda: torch.index_select(src, 0, rows))
+        bound = gather_bound_ms(src.shape[0], src.shape[1], rows.shape[0],
+                                rows.element_size())
+        parts.append(f"{what}, x {list(src.shape)}, idx [{rows.shape[0]}]: "
+                     f"{ms:.4f} ms (index_select {lib_ms:.4f} ms, bound "
+                     f"{bound:.5f} ms by bytes; with the host's share of "
+                     f"one call {host:.4f} against {host_lib:.4f} ms)")
+        if src is logits:      # KCenter's shape goes into the kernels line
+            stats["smem_gather"] = dict(
+                max_abs_err=0.0, ms=ms, plain_ms=lib_ms, bound_ms=bound,
+                bound_by="bytes", library_ms=lib_ms)
+    log(f"gather at the coreset path's shapes ({len(calls)} calls: "
+        f"{len(pools)} class pools of {min(map(len, pools))} to "
+        f"{len(largest)} rows at each width, {picked.shape[0]} selected "
+        f"rows), direct, all exact; device time of launches queued back "
+        f"to back, largest pool and selection: "
+        + "; ".join(parts))
 
 
 # ---------------------------------------------------------------------------
@@ -622,7 +678,7 @@ def compare_spmm_small(SB, G) -> None:
 
 def compare_spmm_arxiv(SB, ds, stats: dict) -> None:
     """(b): the arxiv twin's normalized adjacency, forward and backward at
-    the three widths the coreset path uses."""
+    the widths the coreset path uses."""
     import torch
 
     adj = ds.adj_norm()
@@ -635,7 +691,9 @@ def compare_spmm_arxiv(SB, ds, stats: dict) -> None:
     csr = adj.to_csr()
     bad: list = []
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for d in (128, 256, 40):
+    # features, hidden, classes, and [X | 1] of the evaluator's hoist (not
+    # a multiple of 4: the kernel's scalar branch, two column slabs)
+    for d in (128, 256, 40, 129):
         x = torch.randn(n, d, generator=gen, device="cuda")
         g = torch.randn(n, d, generator=gen, device="cuda")
         err = check_spmm(SB, f"(b) arxiv d={d} fwd", adj, layout, x, bad)
@@ -673,13 +731,56 @@ def compare_spmm_arxiv(SB, ds, stats: dict) -> None:
              + "\n  ".join(bad))
 
 
+def compare_spmm_subgraphs(SB, G, subgraphs: dict) -> None:
+    """The other shape the coreset path gives the kernel: the normalized
+    adjacency of the selected nodes' subgraph, on which a GCN evaluation
+    trains (a hoisted first aggregation of [X | 1], then one forward and
+    one backward launch an epoch at the class count).  Runs after phase 8,
+    on the subgraphs it selected."""
+    import torch
+
+    bad: list = []
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for method, raw in subgraphs.items():
+        adj = G.gcn_norm(raw)
+        layout = adj.blocked()
+        wide = adj.blocked(td=64)     # the tile a large matrix gets
+        csr = adj.to_csr()
+        n, nnz = adj.n_rows, adj.nnz
+        heaviest = int(torch.diff(adj.indptr).max())
+        parts = []
+        for d in (128, 256, 40, 129):
+            x = torch.randn(n, d, generator=gen, device="cuda")
+            tag = f"{method} subgraph n={n} d={d}"
+            err = check_spmm(SB, tag, adj, layout, x, bad)
+            check_spmm(SB, tag + " td=64", adj, wide, x, bad)
+            ms = queued_ms(lambda: SB.spmm_blocked(layout, x))
+            ms64 = queued_ms(lambda: SB.spmm_blocked(wide, x))
+            plain = queued_ms(lambda: SB.spmm_blocked_plain(layout, x))
+            lib = queued_ms(lambda: torch.sparse.mm(csr, x))
+            parts.append(
+                f"d={d}: max|Δ| {err:.2e}, kernel {ms:.4f} ms (td=64 "
+                f"{ms64:.4f} ms; plain {plain:.4f} ms; torch.sparse.mm "
+                f"{lib:.4f} ms; bound {spmm_bound_ms(nnz, n, n, d):.5f} ms "
+                f"by bytes)")
+        log(f"spmm on the {method} subgraph: {n} rows, {nnz} stored "
+            f"entries, heaviest row {heaviest}; layout {layout.describe()} "
+            f"({-(-n // layout.td)} destination tiles); device time of "
+            f"launches queued back to back; "
+            + "; ".join(parts))
+    if bad:
+        fail("blocked SpMM disagrees on a selected subgraph:\n  "
+             + "\n  ".join(bad))
+
+
 # ---------------------------------------------------------------------------
 # Phase 8: the coreset path
 # ---------------------------------------------------------------------------
 
-def run_coresets(SB, SG, G) -> dict:
+def run_coresets(SB, SG, G) -> tuple:
     """kcenter / herding+agg / cent_p through train_all.run at full width;
-    returns the kernels' launch counts over the three runs."""
+    returns the kernels' launch counts over the three runs and the selected
+    subgraphs that the GCN evaluations trained on."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -700,6 +801,7 @@ def run_coresets(SB, SG, G) -> dict:
             torch.cuda.synchronize()
             seen[key] = (time.perf_counter() - t0,
                          SB.LAUNCHES["spmm_blocked"] - before)
+            seen[key + " result"] = out
             return out
         return wrapper
 
@@ -711,12 +813,18 @@ def run_coresets(SB, SG, G) -> dict:
 
     class TimedEvaluator(evaluator):
         def evaluate(self, *a, **kw):
+            # the full graph's normalization and layout, where the reducer
+            # did not need them, would otherwise count as evaluation
+            t0 = time.perf_counter()
+            self.data.adj_norm().blocked()
+            torch.cuda.synchronize()
+            seen["setup"] = time.perf_counter() - t0
             return timed(super().evaluate, "evaluate")(*a, **kw)
 
     TA.create_reducer, TA.Evaluator = create_timed, TimedEvaluator
     SB.reset_launches()
     SG.reset_launches()
-    kcenter = None
+    kcenter, subgraphs = None, {}
     with tempfile.TemporaryDirectory() as tmp:
         for method, agg, model in (("kcenter", False, "GCN"),
                                    ("herding", True, "SGC"),
@@ -745,12 +853,16 @@ def run_coresets(SB, SG, G) -> dict:
             log(f"coreset {method}{'+agg' if agg else ''} / {model} on "
                 f"ogbn-arxiv r=0.01: {n_sel} nodes, reduce "
                 f"{seen['reduce'][0]:.2f} s ({seen['reduce'][1]} SpMM "
-                f"launches), evaluate 3 seeds x 300 epochs "
-                f"{seen['evaluate'][0]:.2f} s ({seen['evaluate'][1]} SpMM "
+                f"launches), full-graph normalization and layout left to "
+                f"the evaluator {seen['setup']:.2f} s, evaluate 3 seeds x "
+                f"300 epochs {seen['evaluate'][0]:.2f} s "
+                f"({seen['evaluate'][1]} SpMM "
                 f"launches), gather launches {lb}, accuracy {mean:.4f} ± "
                 f"{std:.4f}")
             if method == "kcenter":
                 kcenter = (agent, seen["data"], args, seen["reduce"][1])
+            if model == "GCN":    # trained on the selected nodes' subgraph
+                subgraphs[method] = seen["reduce result"].adj
     launches = dict(SB.LAUNCHES, **SG.LAUNCHES)
     TA.create_reducer, TA.Evaluator = create, evaluator
 
@@ -813,7 +925,7 @@ def run_coresets(SB, SG, G) -> dict:
         f"({spmm_ms / busy:.3f} of busy), idle share estimated as 1 - "
         f"busy / unprofiled epoch: {1 - busy / epoch_ms:.3f}; top: "
         + "; ".join(f"{k[:48]} {v:.2f} ms" for k, v in top4))
-    return launches
+    return launches, subgraphs
 
 
 def main() -> None:
@@ -868,8 +980,7 @@ def main() -> None:
     ds = load("ogbn-arxiv", seed=0, device="cuda")
     log(f"load ogbn-arxiv twin: {ds.n_nodes} nodes, {ds.adj.nnz} edges, "
         f"{time.perf_counter() - t0:.1f} s")
-    pool = len(ds.idx_train) // ds.nclass
-    probe_gather(SG, stats, (ds.n_nodes, 256, pool))
+    probe_gather(SG, stats, ds)
     compare_spmm_small(SB, G)
     compare_spmm_arxiv(SB, ds, stats)
     if opts.only == "kernels":
@@ -905,7 +1016,8 @@ def main() -> None:
     # --- phase 8 ---------------------------------------------------------
     del ev, art, red
     torch.cuda.empty_cache()
-    core = run_coresets(SB, SG, G)
+    core, subgraphs = run_coresets(SB, SG, G)
+    compare_spmm_subgraphs(SB, G, subgraphs)
 
     src = "graphslim_tpu_torch/csrc/"
     kernels = [

@@ -6,14 +6,13 @@ measured the rate of a row gather from a source tile held on chip: the rate
 that decides whether the blocked SpMM's staged source tile pays.  A TPU
 core holds the probe's whole 2 MB source in on-chip memory; a thread block
 has 227 KB of shared memory, so each block owns a slice of ``ts`` source
-rows and serves the indices that fall into it, either from a staged copy of
-the slice in shared memory or straight from ``x`` through L2.
-
-Modes: ``"staged"`` and ``"direct"`` force a branch (the probe times both);
-``"auto"`` lets each block count its hits and stage only when every staged
-row is used ``STAGE_REUSE`` times on average, the rule the blocked SpMM's
-``build_blocked`` applies to its blocks.  The kernel is bound by bytes: ``out`` +
-``idx`` + ``x``.
+rows and serves the indices that fall into it from a staged copy of the
+slice in shared memory (``staged=True``, what the probe times over ``ts``),
+or one slice spans all of ``x`` and rows are read straight from it through
+L2 (``staged=False``).  On the H100 the direct branch was never slower than
+the staged one at one use of a staged row (``chip_smoke.py``, gather
+probe), so :func:`gather_rows` takes it.  The kernel is bound by bytes:
+``out`` + ``idx`` + ``x``.
 
 :func:`gather_rows` launches the kernel for a CUDA tensor (or raises) and
 takes :func:`gather_rows_plain` (``torch.index_select``) for a CPU tensor.
@@ -23,14 +22,13 @@ takes :func:`gather_rows_plain` (``torch.index_select``) for a CPU tensor.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from graphslim_tpu_torch.kernels.build import load_library
-from graphslim_tpu_torch.kernels.spmm_blocked import STAGE_REUSE
 
-MODES = {"auto": 0, "staged": 1, "direct": 2}
-TILE_BYTES = 64 * 1024   # default shared-memory slice of a block
+TILE_BYTES = 64 * 1024   # default shared-memory slice of a staging block
 _MAX_SMEM = 232448       # bytes of shared memory a block can use on an H100
 _NT = 256                # threads of a block (csrc/spmm_common.cuh: NT)
 
@@ -52,11 +50,16 @@ def build() -> ctypes.CDLL:
         return _LIB
     lib, info = load_library("smem_gather")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.smem_gather.argtypes = [ptr] * 3 + [i32] * 9 + [ptr]
+    lib.smem_gather.argtypes = [ptr, ptr, i32, ptr] + [i32] * 7 + [ptr]
     lib.smem_gather.restype = i32
     BUILD_INFO.update(info)
     _LIB = lib
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def gather_rows_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -64,12 +67,14 @@ def gather_rows_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.index_select(x, 0, idx)
 
 
-def gather_rows_cuda(x: torch.Tensor, idx: torch.Tensor, *, ts=None,
-                     mode: str = "auto") -> torch.Tensor:
+def gather_rows_cuda(x: torch.Tensor, idx: torch.Tensor, *,
+                     staged: bool = False, ts=None) -> torch.Tensor:
     """One launch of the kernel.  ``x`` is float32 [n_src, d] and
-    contiguous, ``idx`` int32 or int64 [E] with values in [0, n_src);
-    ``ts`` source rows per block (default: a 64 KB slice).  The indices
-    are cut into as many chunks as it takes to fill the card."""
+    contiguous, ``idx`` int32 or int64 [E] with values in [0, n_src).
+    ``staged``: each block copies its slice of ``ts`` source rows (default:
+    a 64 KB slice) into shared memory first; otherwise one slice spans
+    ``x``.  The indices are cut into as many chunks as it takes to fill
+    the card."""
     if not x.is_cuda:
         raise ValueError("the gather kernel takes CUDA tensors")
     if x.dtype != torch.float32 or x.ndim != 2 or not x.is_contiguous():
@@ -79,8 +84,6 @@ def gather_rows_cuda(x: torch.Tensor, idx: torch.Tensor, *, ts=None,
             idx.dtype not in (torch.int32, torch.int64):
         raise ValueError("idx must be an int32 or int64 vector on x's "
                          "device")
-    if mode not in MODES:
-        raise ValueError(f"mode must be one of {sorted(MODES)}")
     n_src, d = x.shape
     n_idx = idx.shape[0]
     out = torch.empty((n_idx, d), dtype=torch.float32, device=x.device)
@@ -88,24 +91,29 @@ def gather_rows_cuda(x: torch.Tensor, idx: torch.Tensor, *, ts=None,
         return out
     if n_src == 0:
         raise ValueError("cannot gather from an empty source")
-    idx = idx.to(torch.int32).contiguous()
-    if ts is None:
+    idx = idx.contiguous()
+    if not staged:
+        ts = n_src
+    elif ts is None:
         ts = max(1, min(n_src, TILE_BYTES // (4 * d)))
-    smem = 0 if mode == "direct" else ts * d * 4
+    smem = ts * d * 4 if staged else 0
     if ts < 1 or smem > _MAX_SMEM:
         raise ValueError(f"a slice of ts={ts} rows of {d} floats needs "
                          f"{smem} bytes of shared memory, over the "
                          f"{_MAX_SMEM} a block has")
     n_tiles = -(-n_src // ts)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    chunks = max(1, min(-(-4 * sms // n_tiles), -(-n_idx // 1024)))
+    sms = _sm_count(x.device)
+    # a staging block amortizes its copy over at least 1024 indices; a
+    # direct one takes 32 a warp
+    chunks = max(1, min(-(-4 * sms // n_tiles),
+                        -(-n_idx // (1024 if staged else _NT))))
     per_chunk = -(-n_idx // chunks)
     e_per_block = -(-per_chunk // _NT) * _NT
     vec = d % 4 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     lib = build()
-    rc = lib.smem_gather(x.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                         n_src, d, n_idx, ts, e_per_block, MODES[mode],
-                         STAGE_REUSE, smem, int(vec),
+    rc = lib.smem_gather(x.data_ptr(), idx.data_ptr(),
+                         int(idx.dtype == torch.int64), out.data_ptr(),
+                         n_src, d, n_idx, ts, e_per_block, smem, int(vec),
                          torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"smem_gather_kernel launch failed: CUDA error "

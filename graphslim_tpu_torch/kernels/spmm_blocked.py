@@ -25,8 +25,14 @@ What the layout keeps of the TPU design, and what it changes for the card:
   memory) already serves moderate reuse.  Measured on the H100 at d = 128
   (``tools/spmm_tile_sweep.py``, td = ts = 64): at 14 uses a staged row the
   direct branch wins (0.33 against 0.39 ms), at 32 the staged one (0.64
-  against 0.92 ms); the ogbn-arxiv twin in its random node order has about
-  one entry per tile pair and is all direct;
+  against 0.92 ms).  Those are synthetic banded graphs: the ogbn-arxiv
+  twin in its random node order has about one entry per tile pair, so on
+  the graphs the port loads every block is direct, and the staged branch
+  runs only in the tests and the sweep;
+* a destination tile has 64 rows, fewer for a matrix too small to fill the
+  card with such tiles: on a coreset's subgraph (1336 rows) tiles of 16
+  rows run the kernel in 0.010 ms against 0.016-0.021 ms with 64
+  (``chip_smoke.py``, H100);
 * one thread block owns one destination tile, so no sum crosses thread
   blocks: no atomics, results repeat bit for bit.
 
@@ -55,7 +61,9 @@ from graphslim_tpu_torch.kernels.build import load_library
 from graphslim_tpu_torch.utils import resolve_device
 
 SLAB = 128       # columns a thread block covers (csrc/spmm_common.cuh: SLAB)
-TD = 64          # default destination-tile rows
+TD = 64          # default destination-tile rows of a large matrix ...
+TD_MIN = 16      # ... halved down to this while the matrix has fewer than
+MIN_TILES = 512  # this many tiles (thread blocks a column slab: 4 an SM)
 TS = 64          # default source-tile rows: 32 KB of shared memory a slab
 CHUNK = 2048     # default longest stored block
 STAGE_REUSE = 24  # uses of every staged row at which staging starts to pay
@@ -113,17 +121,23 @@ class BlockedCOO:
                 f"slots={self.nnz / 1e6:.2f}M")
 
 
-def build_blocked(indptr, col, val, td: int = TD, ts: int = TS,
+def build_blocked(indptr, col, val, td: Optional[int] = None, ts: int = TS,
                   chunk: int = CHUNK, stage_min: Optional[int] = None,
                   device=None) -> BlockedCOO:
     """Host-side layout build from the CSR arrays of a square matrix (rows
     sorted), moved once to ``device`` (the CUDA card unless the caller says
-    otherwise).  ``val=None`` means ones."""
+    otherwise).  ``val=None`` means ones.  ``td=None`` takes ``TD`` rows a
+    destination tile, fewer for a matrix too small to fill the card with
+    tiles of that size (a coreset's subgraph)."""
     t0 = time.perf_counter()
     indptr = np.asarray(indptr, dtype=np.int64)
     col = np.asarray(col, dtype=np.int64)
     n = indptr.shape[0] - 1
     nnz = col.shape[0]
+    if td is None:
+        td = TD
+        while td > TD_MIN and -(-n // td) < MIN_TILES:
+            td //= 2
     if min(td, ts, chunk) < 1:
         raise ValueError(f"td, ts and chunk must be positive, got "
                          f"{td}/{ts}/{chunk}")

@@ -17,6 +17,8 @@ from graphslim_tpu_torch.kernels import pge as K
 
 pytestmark = pytest.mark.cuda
 
+GRADS = ("da", "db", "dwmid", "dbmid", "dgamma", "dbeta", "dwlast")
+
 
 @pytest.fixture
 def card():
@@ -52,4 +54,42 @@ def test_kernels_match_plain_version(card, n, H, L2, bf16):
         if y is None:
             continue
         scale = want[5] if i == 3 else y    # dbmid: analytically 0
-        assert (x - y).abs().max() <= rtol * scale.abs().max() + atol, i
+        gap, top = float((x - y).abs().max()), float(scale.abs().max())
+        assert gap <= rtol * top + atol, \
+            f"{GRADS[i]}: max|Δ| / max|ref| = {gap / top:.3e}"
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_bf16_backward_is_as_near_float64_as_the_plain_version(card, seed):
+    """Any cotangent, not only the one seeded above: with bf16 operands
+    the kernel rounds dz before its matmuls and autograd of the plain
+    version rounds the matmul results, so the two can differ by more than
+    2e-2 of max|grad| in a gradient that sums over all pairs.  Neither is
+    the reference there: the exact gradient (fp32 operands, float64
+    arithmetic) is, and the kernel may be at most twice as far from it as
+    the plain bf16 version (+ 1e-4·max), the bound ``chip_smoke.py`` uses.
+    Prints each gradient's readings (``-s`` shows them)."""
+    n, H, L2 = 200, 256, 2
+    args = _inputs(n, H, L2, card)
+    R = torch.randn(n, n, device=card,
+                    generator=torch.Generator(card).manual_seed(seed))
+
+    def grads(fn, dtype, bf16):
+        leaves = [a.to(dtype).clone().requires_grad_(True) for a in args]
+        loss = (fn(*leaves, n, bf16) * R.to(dtype)).sum()
+        return torch.autograd.grad(loss, leaves, allow_unused=True)
+
+    got = grads(K.pair_scores, torch.float32, True)
+    want = grads(K.pair_scores_plain, torch.float32, True)
+    exact = grads(K.pair_scores_plain, torch.float64, False)
+    for i, name in enumerate(GRADS):
+        if exact[i] is None:
+            continue
+        top = float((exact[5] if i == 3 else exact[i]).abs().max())
+        e_k = float((got[i].double() - exact[i]).abs().max())
+        e_p = float((want[i].double() - exact[i]).abs().max())
+        gap = float((got[i] - want[i]).abs().max())
+        print(f"seed {seed} {name}: |kernel - plain| {gap / top:.3e}, "
+              f"|kernel - f64| {e_k / top:.3e}, |plain - f64| "
+              f"{e_p / top:.3e} (of max|f64| {top:.3e})")
+        assert e_k <= 2 * e_p + 1e-4 * top, name

@@ -152,6 +152,18 @@ def test_blocked_plain_on_ragged_graphs(n, d, density, td, ts, chunk,
         sorted(zip(row.tolist(), col.tolist()))
 
 
+@pytest.mark.parametrize("n,td", [(1336, 16), (20000, 32), (40000, 64)])
+def test_default_destination_tile_shrinks_for_small_matrices(n, td):
+    """Tiles of 64 rows unless that leaves the card under 512 thread
+    blocks a column slab: then 32 or 16, so a coreset's subgraph (1336
+    rows) spreads over 84 blocks instead of 21."""
+    indptr = np.arange(n + 1)
+    layout = SB.build_blocked(indptr, np.arange(n), None, device="cpu")
+    assert layout.td == td
+    x = torch.arange(2.0 * n).reshape(n, 2)
+    assert torch.equal(SB.spmm_blocked_plain(layout, x), x)
+
+
 def test_unweighted_adjacency_means_ones():
     ei = np.array([[0, 0, 2, 3], [1, 2, 0, 3]])
     adj = G.from_edge_index(ei, 4, device="cpu")

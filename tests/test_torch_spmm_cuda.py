@@ -43,18 +43,19 @@ def _ragged_adj(n, e, seed, dev, heavy=True, weights=True):
                              device=dev)
 
 
-@pytest.mark.parametrize("mode", ["auto", "staged", "direct"])
+@pytest.mark.parametrize("staged", [True, False])
 @pytest.mark.parametrize("n_src,d,n_idx,ts", [
     (4096, 128, 32768, 128), (4096, 128, 32768, 448), (1000, 40, 5000, 64),
     (777, 1, 3000, None), (300, 130, 1, 16), (5000, 256, 2500, None)])
-def test_gather_equals_index_select(card, n_src, d, n_idx, ts, mode):
+def test_gather_equals_index_select(card, n_src, d, n_idx, ts, staged):
     g = torch.Generator(device=card).manual_seed(n_src + d)
     x = torch.randn(n_src, d, generator=g, device=card)
     idx = torch.randint(0, n_src, (n_idx,), generator=g, device=card)
-    out = SG.gather_rows_cuda(x, idx, ts=ts, mode=mode)
+    out = SG.gather_rows_cuda(x, idx, staged=staged, ts=ts)
     torch.cuda.synchronize()
     assert torch.equal(out, SG.gather_rows_plain(x, idx))
-    out32 = SG.gather_rows_cuda(x, idx.to(torch.int32), ts=ts, mode=mode)
+    out32 = SG.gather_rows_cuda(x, idx.to(torch.int32), staged=staged,
+                                ts=ts)
     assert torch.equal(out32, out)
 
 
@@ -68,7 +69,7 @@ def test_gather_dispatch_counts_launches(card):
         SG.gather_rows_cuda(x.double(), idx)
 
 
-@pytest.mark.parametrize("d", [1, 16, 40, 128, 200, 256])
+@pytest.mark.parametrize("d", [1, 16, 40, 128, 129, 200, 256])
 @pytest.mark.parametrize("sizes", [
     dict(td=128, ts=128, chunk=256, stage_min=128),       # staged blocks
     dict(td=128, ts=128, chunk=256, stage_min=10 ** 9),   # direct only
