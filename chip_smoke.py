@@ -11,7 +11,8 @@ line of output each, any failed check raises (non-zero exit):
    in fp32 and with bf16 matmul operands;
 3. the PGE backward kernel against autograd of the plain version, on all
    seven gradients, and in both precisions against a float64 plain
-   version;
+   version; at the slice's shape its time beside the bytes of
+   device-memory scratch a launch allocates;
 4. GCond on the full-width ``ogbn-arxiv`` twin (n_syn 1354, hidden 256,
    PGE nhid 256, 3 epochs × 20 outer steps, a checkpoint evaluation) through
    ``create_reducer(...).reduce()``, with the kernels' launch counts and a
@@ -21,9 +22,10 @@ line of output each, any failed check raises (non-zero exit):
 6. the shared-memory row gather against ``torch.index_select`` (exact), at
    the TPU probe's shape (x 4096 × 128, 32,768 indices) for the source
    tile sizes the blocked SpMM considers, staged and direct, with its
-   rates, and at the shapes the coreset path gives it (every class's pool
+   rates, at the shapes the coreset path gives it (every class's pool
    of the twin's training nodes out of 40- and 128-wide embeddings, then
-   the 1336 selected rows);
+   the 1336 selected rows), and at a width that is no multiple of 4 (the
+   largest pool out of a 129-wide matrix, int32 and int64 indices);
 7. the blocked SpMM kernel against its plain version and a float64
    product: (a) n = 500, d = 16, td = ts = 128; (b) the arxiv twin's
    normalized adjacency at d = 128, 256, 40 and 129, forward and backward,
@@ -243,12 +245,14 @@ def plain_vjp_ms(K, args, R, n: int, bf16: bool) -> float:
 # (n, H, L2, BatchNorm beta shift, fp32 backward rtol against the plain
 # fp32 version, fp32 rtol against float64: None holds the kernel to twice
 # the plain version's distance instead).  Each case's two precisions share
-# its inputs.  The first case is the slice's shape and times the kernels.
+# its inputs.  The first case is the slice's shape and times the kernels;
+# at H = 320 a backward block holds one pair of operand tiles, not two.
 KERNEL_CASES = [(1354, 256, 1, 0.0, 1e-2, 1e-2),
                 (1354, 256, 1, 4.0, 5e-3, None),
                 (500, 256, 1, 4.0, 1e-4, None),
                 (500, 256, 1, 0.0, 1e-2, 1e-2),
                 (200, 256, 2, 4.0, 1e-4, None),
+                (150, 320, 1, 4.0, 1e-4, None),
                 (45, 64, 0, 0.0, 1e-4, None)]
 
 
@@ -339,10 +343,17 @@ def compare_kernels(K, stats: dict) -> None:
                     plain_fwd = timed_ms(
                         lambda: K.pair_scores_plain(*args, n, bf16), 3)
                 plain_bwd = plain_vjp_ms(K, args, R, n, bf16)
+                lib = K.build()
                 line += (f"; fwd {fwd_ms:.3f} ms (plain {plain_fwd:.3f}, "
                          f"bound {b['fwd']:.3f} by {b['fwd_by']}); bwd "
                          f"{bwd_ms:.3f} ms (plain vjp {plain_bwd:.3f}, "
-                         f"bound {b['bwd']:.3f} by {b['bwd_by']})")
+                         f"bound {b['bwd']:.3f} by {b['bwd_by']}; "
+                         f"{K.LAST_BWD['scratch_bytes']} bytes of "
+                         f"device-memory scratch a launch, "
+                         f"{K.LAST_BWD['grid']} blocks of "
+                         f"{lib.pge_bwd_smem_bytes(H, int(bf16))} bytes of "
+                         f"shared memory, "
+                         f"{K.blocks_per_sm(lib, True, bf16, H)} an SM)")
                 if bf16:   # the main path's precision
                     stats["pge_fwd"] = dict(
                         max_abs_err=e_f, ms=fwd_ms, plain_ms=plain_fwd,
@@ -585,6 +596,24 @@ def probe_gather(SG, stats: dict, ds) -> None:
             stats["smem_gather"] = dict(
                 max_abs_err=0.0, ms=ms, plain_ms=lib_ms, bound_ms=bound,
                 bound_by="bytes", library_ms=lib_ms)
+    # a width that is no multiple of 4 (4-byte pieces): the evaluator's
+    # hoisted [X | 1] is 129 wide
+    wide = torch.randn(ds.n_nodes, 129, generator=gen, device="cuda")
+    rows = torch.as_tensor(largest, device="cuda")
+    for r in (rows, rows.to(torch.int32)):
+        out = SG.gather_rows(wide, r)
+        torch.cuda.synchronize()
+        if not torch.equal(out, SG.gather_rows_plain(wide, rows)) or \
+                not torch.equal(out, SG.gather_rows(wide, r)):
+            fail(f"gather at d = 129 ({r.dtype}) differs from index_select")
+    ms = queued_ms(lambda: SG.gather_rows(wide, rows))
+    lib_ms = queued_ms(lambda: torch.index_select(wide, 0, rows))
+    bound = gather_bound_ms(wide.shape[0], 129, rows.shape[0], 8)
+    parts.append(f"largest pool out of a 129-wide matrix (4-byte pieces), "
+                 f"idx [{rows.shape[0]}] int64 and int32 exact: {ms:.4f} ms "
+                 f"(index_select {lib_ms:.4f} ms, bound {bound:.5f} ms by "
+                 f"bytes)")
+    del wide
     log(f"gather at the coreset path's shapes ({len(calls)} calls: "
         f"{len(pools)} class pools of {min(map(len, pools))} to "
         f"{len(largest)} rows at each width, {picked.shape[0]} selected "

@@ -53,6 +53,21 @@ extern "C" int pge_fwd(const float* a, const float* b, const float* wmid,
   return (int)cudaGetLastError();
 }
 
+// Opts the backward kernel into its dynamic shared memory (above 48 KB)
+// and the largest shared-memory carve-out, so that two blocks fit an SM.
+template <bool BF16>
+static cudaError_t prepare_bwd(int smem) {
+  auto kernel = pge::pge_bwd_kernel<BF16>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// dbuf: per block nbuf x P x H floats for the raw dX of middle layers,
+// nbuf = min(2, L2 - 1); null for L2 <= 1.
 extern "C" int pge_bwd(const float* a, const float* b, const float* wmid,
                        const float* bmid, const float* gamma,
                        const float* beta, const float* wlast,
@@ -74,23 +89,51 @@ extern "C" int pge_bwd(const float* a, const float* b, const float* wmid,
   G.db_part = db_part;
   G.dbuf = dbuf;
   G.ni = (n + pge::TI - 1) / pge::TI;
+  G.nbuf = L2 >= 2 ? (L2 - 1 < 2 ? L2 - 1 : 2) : 0;
+  if (H > pge::MAX_H_BWD || (G.nbuf > 0 && dbuf == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int smem = pge::bwd_smem_bytes(H, bf16 != 0);
+  cudaError_t err = bf16 ? prepare_bwd<true>(smem) : prepare_bwd<false>(smem);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int nt_mma = pge::BwdThreads<true>::N;
+  constexpr int nt_simt = pge::BwdThreads<false>::N;
   if (bf16)
-    pge::pge_bwd_kernel<true><<<grid, pge::NT, 0, (cudaStream_t)stream>>>(
+    pge::pge_bwd_kernel<true><<<grid, nt_mma, smem, (cudaStream_t)stream>>>(
         A, G);
   else
-    pge::pge_bwd_kernel<false><<<grid, pge::NT, 0, (cudaStream_t)stream>>>(
+    pge::pge_bwd_kernel<false><<<grid, nt_simt, smem, (cudaStream_t)stream>>>(
         A, G);
   return (int)cudaGetLastError();
 }
 
 // Blocks of the forward (bwd = 0) or backward (bwd = 1) kernel that fit on
-// one SM at once, into *out; returns the CUDA error code.
-extern "C" int pge_blocks_per_sm(int bwd, int bf16, int* out) {
-  const void* k =
-      bwd ? (bf16 ? (const void*)pge::pge_bwd_kernel<true>
-                  : (const void*)pge::pge_bwd_kernel<false>)
-          : (bf16 ? (const void*)pge::pge_fwd_kernel<true>
-                  : (const void*)pge::pge_fwd_kernel<false>);
+// one SM at once at width H, into *out; returns the CUDA error code.
+extern "C" int pge_blocks_per_sm(int bwd, int bf16, int H, int* out) {
+  if (bwd) {
+    const int smem = pge::bwd_smem_bytes(H, bf16 != 0);
+    cudaError_t err =
+        bf16 ? prepare_bwd<true>(smem) : prepare_bwd<false>(smem);
+    if (err != cudaSuccess) return (int)err;
+    const void* k = bf16 ? (const void*)pge::pge_bwd_kernel<true>
+                         : (const void*)pge::pge_bwd_kernel<false>;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, k, bf16 ? pge::BwdThreads<true>::N : pge::BwdThreads<false>::N,
+        smem);
+  }
+  const void* k = bf16 ? (const void*)pge::pge_fwd_kernel<true>
+                       : (const void*)pge::pge_fwd_kernel<false>;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, k, pge::NT,
                                                            0);
 }
+
+// Bytes of dynamic shared memory of a backward block at width H.
+extern "C" int pge_bwd_smem_bytes(int H, int bf16) {
+  return pge::bwd_smem_bytes(H, bf16 != 0);
+}
+
+#ifdef PGE_PHASES
+// Diagnostic builds only: sets the mask of skipped phases.
+extern "C" int pge_set_skip(int bits) {
+  return (int)cudaMemcpyToSymbol(pge::g_skip, &bits, sizeof(int));
+}
+#endif

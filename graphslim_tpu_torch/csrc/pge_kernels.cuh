@@ -24,8 +24,10 @@
 // columns (mean = mean_i a + mean_j b, var = var_i a + var_j b), so h0 is
 // never stored.  The backward reads the forward's workspace instead of
 // recomputing it (the TPU kernel recomputed; 1.9 GB at the slice's
-// shapes is cheap on an 80 GB card) and keeps two gradient buffers per
-// block.
+// shapes is cheap on an 80 GB card).  A tile's gradient never goes
+// through device memory: BatchNorm and ReLU backward are applied while
+// the operands of the two products are staged, and layer 0 keeps only row
+// and column sums (see "Backward" below).
 //
 // Blocks are persistent (a grid-stride loop over tiles) and run in no
 // order, so nothing is accumulated across blocks: the backward writes
@@ -34,9 +36,14 @@
 //
 // Matmuls: with mm_bf16 set (the main path), every operand is rounded to
 // bf16 (round to nearest even) as it is staged in shared memory and the
-// product runs on the tensor cores (mma.sync m16n8k16, fp32 accumulators)
-// -- the TPU kernel's MM_DTYPE numerics.  Without it they run on the CUDA
+// product runs on the tensor cores with fp32 accumulators (mma.sync
+// m16n8k16 in the forward, wgmma m64n64k16 in the backward) -- the TPU
+// kernel's MM_DTYPE numerics.  Without it they run on the CUDA
 // cores in full fp32 (128 x 64 output tile, 8 x 4 outputs per thread).
+// The forward stages element by element (gemm_mma, gemm_simt); the
+// backward four elements at a time: into swizzled tiles that wgmma reads,
+// with the workspace operand in a cp.async ring (gemm_stage4), or in fp32
+// (gemm_simt4).
 //
 // Bound on the H100 at the slice's shapes (n = 1354, H = 256, L2 = 1):
 // the forward's hidden matmul is 2 * 1354^2 * 256 * 256 = 240 GFLOP of
@@ -44,20 +51,50 @@
 // backward twice that (dW and dX).  The forward's function is the 7.3 MB
 // of scores, so it is bound by operations; the backward reads the 1.9 GB
 // workspace as an input, 0.56 ms at 3.35 TB/s, so it is bound by bytes
-// (recomputing instead would cost 0.73 ms of operations).  The per-pair
-// passes (statistics, BatchNorm backward) stream each tile's 2 MB of
-// activations through device memory several times more; PERF.md holds
-// the measured times.
+// (recomputing instead would cost 0.73 ms of operations).  What holds
+// the backward above that bound: it reads each tile's 2 MB of z five
+// times (the reduction pass, twice for each product, whose 128 x 128
+// output tiles restage the operand), and a step of a product is short
+// against the latency of device memory, so the loads have to be kept
+// several steps ahead without registers.  PERF.md holds the measured
+// times of both kernels and of their phases.
 //
-// tools/pge_kernel_phases.py builds a diagnostic copy of this file by
-// exact text replacement: it guards the statements listed in its GUARDS,
-// A_LOAD and B_LOAD with a runtime skip mask.  A change to any of those
-// lines updates that tool in the same change (it stops with "not found"
-// otherwise).
+// tools/pge_kernel_phases.py times diagnostic builds of this file (wrong
+// results, only the time counts).  With -DPGE_PHASES a phase is skipped
+// when its bit is set in the device variable g_skip (the bits are listed
+// below); -DPGE_CONST=bits replaces an operand's staging by a constant at
+// compile time.  Without the macros the guards are constant false and
+// compile away.
 
 #pragma once
 
 namespace pge {
+
+#ifdef PGE_PHASES
+__device__ int g_skip;
+#define PGE_SKIP(bits) (g_skip & (bits))
+#else
+#define PGE_SKIP(bits) 0
+#endif
+#ifndef PGE_CONST
+#define PGE_CONST 0
+#endif
+
+// Bits of g_skip (a phase, or a part of every step of gemm_stage4) ...
+enum Skip {
+  SKIP_FWD_MATMUL = 1, SKIP_FWD_STATS = 2, SKIP_FWD_DOT = 4,
+  SKIP_DW = 8, SKIP_DX = 16, SKIP_REDUCE = 32, SKIP_L0_SUMS = 64,
+  SKIP_FINISH0 = 128, SKIP_STEP_FETCH = 256, SKIP_STEP_CONVERT = 512,
+  SKIP_STEP_MMA = 1024
+};
+// ... and of PGE_CONST: the forward matmul's A or B operand; the
+// backward's dz without its loads or without its arithmetic; the dW
+// product's X operand.
+enum Const {
+  CONST_FWD_A = 1, CONST_FWD_B = 2, CONST_DZ_NOLOAD = 4, CONST_DZ_NOCVT = 8,
+  CONST_X = 16
+};
+constexpr unsigned BF16_ONES = 0x3f803f80u;   // two bf16 1.0
 
 constexpr int TI = 16;            // score-tile rows
 constexpr int TJ = 128;           // score-tile cols
@@ -176,13 +213,37 @@ struct Ctx {
 // tiles.  Loaders return one element; A_MCONTIG / B_KCONTIG pick the
 // thread-to-element map whose global reads are coalesced for the source's
 // contiguous axis.  epi(m, n, v0, v1) receives 2 consecutive columns of a
-// row.  N must be a multiple of BN (64) and K of MK (32); rows m >= M are
-// skipped.  With bf16 set the product runs on the tensor cores
-// (gemm_mma), else on the CUDA cores in fp32 (gemm_simt).
+// row; done(m0, n0) runs on every thread once an output tile's epilogue
+// is through (it may synchronize).  The output tile is 128 rows by MBN
+// (bf16) or BN (fp32) columns.  N must be a multiple of BN (64) and K of
+// MK (32); rows m >= M are skipped.  With bf16 set the product runs on
+// the tensor cores (gemm_mma), else on the CUDA cores in fp32 (gemm_simt).
 // ---------------------------------------------------------------------------
-template <bool A_MCONTIG, bool B_KCONTIG, class FA, class FB, class FE>
+// One depth step of the fp32 product from the staged tiles As[k][m],
+// Bs[k][n]: thread (tr, tc) owns rows tr * 8 .. + 7, columns tc * 4 .. + 3.
+__device__ __forceinline__ void simt_step(float (&acc)[8][4], const float* As,
+                                          const float* Bs, int tr, int tc) {
+#pragma unroll
+  for (int kk = 0; kk < BK; ++kk) {
+    const float4 a0 = *reinterpret_cast<const float4*>(
+        &As[kk * BMP + tr * 8]);
+    const float4 a1 = *reinterpret_cast<const float4*>(
+        &As[kk * BMP + tr * 8 + 4]);
+    const float4 bv = *reinterpret_cast<const float4*>(
+        &Bs[kk * BNP + tc * 4]);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float bw[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bw[j], acc[i][j]);
+  }
+}
+
+template <bool A_MCONTIG, bool B_KCONTIG, class FA, class FB, class FE,
+          class FD>
 __device__ void gemm_simt(int M, int N, int K, FA ldA, FB ldB, FE epi,
-                          float* As, float* Bs) {
+                          FD done, float* As, float* Bs) {
   const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
   for (int m0 = 0; m0 < M; m0 += BM) {
     for (int n0 = 0; n0 < N; n0 += BN) {
@@ -223,23 +284,7 @@ __device__ void gemm_simt(int M, int N, int K, FA ldA, FB ldB, FE epi,
           }
         }
         __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < BK; ++kk) {
-          const float4 a0 = *reinterpret_cast<const float4*>(
-              &As[kk * BMP + tr * 8]);
-          const float4 a1 = *reinterpret_cast<const float4*>(
-              &As[kk * BMP + tr * 8 + 4]);
-          const float4 bv = *reinterpret_cast<const float4*>(
-              &Bs[kk * BNP + tc * 4]);
-          const float av[8] = {a0.x, a0.y, a0.z, a0.w,
-                               a1.x, a1.y, a1.z, a1.w};
-          const float bw[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bw[j],
-                                                         acc[i][j]);
-        }
+        simt_step(acc, As, Bs, tr, tc);
         __syncthreads();
       }
 #pragma unroll
@@ -250,6 +295,79 @@ __device__ void gemm_simt(int M, int N, int K, FA ldA, FB ldB, FE epi,
           epi(m, n0 + tc * 4 + 2, acc[i][2], acc[i][3]);
         }
       }
+      done(m0, n0);
+    }
+  }
+}
+
+// The fp32 product of the backward, staged four elements at a time (the
+// operands are computed while they are staged, which per element costs
+// more than the products: see gemm_stage4 below, whose conventions this
+// follows).  ldA(row, depth) and ldB(row, depth) return 4 values that are
+// consecutive in the source: along the rows (RC: A(m..m+3, k),
+// B(n..n+3, k)) or along the depth (A(m, k..k+3), B(n, k..k+3)).  A
+// thread's three loads are started before the first is stored.  M a
+// multiple of 4, N of BN, K of BK; rows m >= M are staged as zeros.
+template <bool RC, class FA, class FB, class FE, class FD>
+__device__ void gemm_simt4(int M, int N, int K, FA ldA, FB ldB, FE epi,
+                           FD done, float* As, float* Bs) {
+  const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  // this thread's float4s of the A tile (two, AQ rows or depths apart) and
+  // of the B tile (one)
+  const int am = RC ? (tid & 31) * 4 : tid >> 2;
+  const int ak = RC ? tid >> 5 : (tid & 3) * 4;
+  const int bn = RC ? (tid & 15) * 4 : tid >> 2;
+  const int bk = RC ? tid >> 4 : (tid & 3) * 4;
+  constexpr int AQ = RC ? NT / 32 : NT / 4;
+  for (int m0 = 0; m0 < M; m0 += BM) {
+    for (int n0 = 0; n0 < N; n0 += BN) {
+      float acc[8][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      for (int k0 = 0; k0 < K; k0 += BK) {
+        float4 va[2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int m = am + (RC ? 0 : q * AQ), k = ak + (RC ? q * AQ : 0);
+          va[q] = m0 + m < M ? ldA(m0 + m, k0 + k) : zero;
+        }
+        const float4 vb = ldB(n0 + bn, k0 + bk);
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int m = am + (RC ? 0 : q * AQ), k = ak + (RC ? q * AQ : 0);
+          if (RC) {
+            *reinterpret_cast<float4*>(&As[k * BMP + m]) = va[q];
+          } else {
+            As[k * BMP + m] = va[q].x;
+            As[(k + 1) * BMP + m] = va[q].y;
+            As[(k + 2) * BMP + m] = va[q].z;
+            As[(k + 3) * BMP + m] = va[q].w;
+          }
+        }
+        if (RC) {
+          *reinterpret_cast<float4*>(&Bs[bk * BNP + bn]) = vb;
+        } else {
+          Bs[bk * BNP + bn] = vb.x;
+          Bs[(bk + 1) * BNP + bn] = vb.y;
+          Bs[(bk + 2) * BNP + bn] = vb.z;
+          Bs[(bk + 3) * BNP + bn] = vb.w;
+        }
+        __syncthreads();
+        simt_step(acc, As, Bs, tr, tc);
+        __syncthreads();
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int m = m0 + tr * 8 + i;
+        if (m < M) {
+          epi(m, n0 + tc * 4, acc[i][0], acc[i][1]);
+          epi(m, n0 + tc * 4 + 2, acc[i][2], acc[i][3]);
+        }
+      }
+      done(m0, n0);
     }
   }
 }
@@ -286,9 +404,10 @@ __device__ __forceinline__ void tile_elem(int q, int& r, int& k) {
 // MBM x MBN output tile.  The (output tile, depth step) sequence is one
 // loop, and the next step's operands are read into registers while this
 // step's products run.
-template <bool A_MCONTIG, bool B_KCONTIG, class FA, class FB, class FE>
+template <bool A_MCONTIG, bool B_KCONTIG, class FA, class FB, class FE,
+          class FD>
 __device__ void gemm_mma(int M, int N, int K, FA ldA, FB ldB, FE epi,
-                         unsigned short* As, unsigned short* Bs) {
+                         FD done, unsigned short* As, unsigned short* Bs) {
   constexpr int EA = MBM * MK / NT, EB = MBN * MK / NT;  // staged/thread
   constexpr int NJ = MBN / WARPS_N / 8;   // n8 tiles of a warp
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -379,21 +498,307 @@ __device__ void gemm_mma(int M, int N, int K, FA ldA, FB ldB, FE epi,
           if (m + 8 < M) epi(m + 8, n, acc[i][j][2], acc[i][j][3]);
         }
       }
+      done(m0, n0);
     }
   }
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core matmul of the backward, staged four elements at a time.
+//
+// gemm_mma above fetches one element per call; with an operand that is
+// computed while it is staged (dz needs a load of z, five per-channel
+// constants, the pair's mask and its upstream gradient) the per-element
+// index arithmetic and 4-byte accesses cost more than the products.  Here
+// a thread fetches 4 elements that are consecutive in the source: one
+// 16-byte load, per-pair work once, constants as float4 from shared
+// memory, one 8-byte store of 4 bf16.  Both operands keep the source's
+// contiguous axis in shared memory, so the stores are as wide as the
+// loads, and wgmma reads them from there (transposing where the
+// contiguous axis is not the depth).
+//
+// RC = false: sources contiguous along the depth k: A(m, k..k+3),
+// B(n, k..k+3), stored K-major.  RC = true: contiguous along the rows:
+// A(m..m+3, k), B(n..n+3, k), stored MN-major.
+//
+// One operand comes from cache (weights, layer-0 activations):
+// ldS(row, depth) loads and finishes it one step ahead and holds 4 packed
+// bf16 (2 registers), cvS(raw, row, depth) hands them on.  The other comes
+// from the workspace through a ring in shared memory (gemm_stage4).  The
+// walk over (output tile, depth step) keeps its coordinates by increment:
+// a division per step and thread costs as much as the products.  Rows
+// beyond M or N are staged as zeros.  epi and done as for gemm_mma.  The
+// block has NT4 = 512 threads, 4 warpgroups as 2 x 2 over the MBM x MBN
+// output tile: 32 accumulators a thread, which with the staged operand's
+// registers fits 128 registers, and one block an SM leaves L1 its share of
+// the SM's memory.
+// ---------------------------------------------------------------------------
+constexpr int NT4 = 512;      // threads of a block that runs gemm_stage4
+constexpr int MK4 = 64;       // depth step
+constexpr int TILE4 = MBM * MK4;   // elements of an operand tile (16 KB)
+constexpr int PANEL4 = 64 * MK4;   // of its 64 rows wide MN-major panel
+constexpr int BUF4_BYTES = 2 * TILE4 * 2;   // an A and a B tile
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  unsigned d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+__device__ __forceinline__ uint2 pack4(float4 v) {
+  return make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+}
+
+// 16 bytes from device memory to shared memory without passing through
+// registers; a thread's copies complete in the order of its commits.
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :
+               : "r"(a), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most PENDING of this thread's committed groups are open.
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" : : "n"(PENDING) : "memory");
+}
+
+// wgmma (the tensor cores' warpgroup instruction): 128 threads compute
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64] with both operands read from
+// shared memory through a descriptor, asynchronously.  The operand tiles
+// are stored in the 128-byte swizzle: rows of 128 bytes, the 16-byte chunk
+// index of a row xor-ed with (row & 7), 8 rows (1024 bytes) an atom; the
+// tile's base is 1024-byte aligned.  A row runs along the depth (K-major,
+// 64 depth values a row) or, with TA / TB set, along the operand's rows
+// (MN-major: a row holds 64 rows of the operand at one depth value, and
+// `lbo` is the distance between such 64-wide panels).
+__device__ __forceinline__ unsigned long long wg_desc(const void* p,
+                                                      unsigned lbo) {
+  const unsigned long long a = (unsigned)__cvta_generic_to_shared(p);
+  return ((a & 0x3FFFFull) >> 4) | ((unsigned long long)(lbo >> 4) << 16) |
+         (64ull << 32) | (1ull << 62);   // 1024 bytes an atom, 128B swizzle
+}
+
+// `accumulate` 0: D = A B, else D += A B.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16(float* d,
+                                                unsigned long long da,
+                                                unsigned long long db,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// Orders this thread's register and shared-memory writes before the
+// warpgroup's next wgmma.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Waits for the warpgroup's committed wgmmas; the accumulators are not to
+// be read (or moved by the compiler) before it.
+__device__ __forceinline__ void wgmma_wait(float* d) {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Makes shared-memory stores visible to wgmma's reads (the async proxy).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+constexpr int RING_STAGES = 2;   // steps of workspace loads in flight
+constexpr int RING_FLOATS = RING_STAGES * (MK4 / 16) * NT4 * 4;
+
+// ASYNC_A says which operand comes from the workspace (A or B); the other
+// is `ldS`/`cvS` as described above.  The workspace operand's loads cost no
+// registers: copy(row, depth, slot) starts copies of NSRC float4 into the
+// thread's own slot of a ring in shared memory, RING_STAGES / NSRC steps
+// ahead of their use, and cv(slot, row, depth) reads them back and returns
+// the 4 packed bf16.  All blocks walk their tiles in step, so with loads
+// only one step ahead the card's memory idled while the products ran and
+// the products waited while it worked; holding more steps in registers
+// spilled.  A thread reads only what it copied itself, so the ring needs
+// no barrier, only the thread's own wait.
+//
+// `oper` holds nbuf (1 or 2) pairs of operand tiles.  With two, a step's
+// products run while the next step is converted into the other pair, and
+// a step has one barrier: before it every warpgroup has waited for the
+// products of the step before, the last readers of the pair that the
+// next step overwrites.  With one, a step waits for its own products and
+// ends at a second barrier.
+template <bool RC, bool ASYNC_A, int NSRC, class IS, class CV, class LS,
+          class CS, class FE, class FD>
+__device__ void gemm_stage4(int M, int N, int K, IS copy, CV cv, LS ldS,
+                            CS cvS, FE epi, FD done, unsigned short* oper,
+                            int nbuf, float* ring) {
+  static_assert(MBM == 128 && MBN == 128 && MK4 % 16 == 0,
+                "2 x 2 warpgroups of 64 x 64, whole k16 steps");
+  constexpr int V = MK4 / 16;              // float4s a thread and operand
+  constexpr int F = MK4 / 4;               // float4s of a depth-contiguous row
+  constexpr int NS = RING_STAGES / NSRC;   // steps in flight
+  constexpr int STAGE = RING_FLOATS / NS;  // floats of a step's copies
+  using RawS = decltype(ldS(0, 0));
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wm = (warp >> 3) * 64, wn = ((warp >> 2) & 1) * 64;
+  const int steps = (M + MBM - 1) / MBM * ((N + MBN - 1) / MBN) * (K / MK4);
+  // this thread's q-th float4 of an operand tile: row r, depth k
+  const int r_base = RC ? (tid & 31) * 4 : tid / F;
+  const int k_base = RC ? tid >> 5 : (tid % F) * 4;
+  constexpr int R_STEP = RC ? 0 : NT4 / F, K_STEP = RC ? NT4 / 32 : 0;
+  // descriptors of this warpgroup's 64 rows of each operand tile of the
+  // first pair; a k16 sub-step is 32 bytes along a K-major row, 16 rows
+  // of an MN-major tile
+  unsigned short* const Bs0 = oper + TILE4;
+  const unsigned long long desc_a =
+      RC ? wg_desc(oper + (wm >> 6) * PANEL4, PANEL4 * 2)
+         : wg_desc(oper + wm * MK4, 16);
+  const unsigned long long desc_b =
+      RC ? wg_desc(Bs0 + (wn >> 6) * PANEL4, PANEL4 * 2)
+         : wg_desc(Bs0 + wn * MK4, 16);
+  constexpr int KADV = (RC ? 16 * 128 : 32) >> 4;
+  // this thread's slots of the ring: stage, then q
+  float* my_ring = ring + tid * 4 * NSRC;
+  constexpr int Q_FLOATS = NT4 * 4 * NSRC;
+  const int skip = PGE_SKIP(~0);   // read once
+  RawS rs[V];
+  // next (output tile, depth step): depth fastest, then columns, then rows
+  auto advance = [&](int& m0, int& n0, int& k0) {
+    k0 += MK4;
+    if (k0 == K) {
+      k0 = 0;
+      n0 += MBN;
+      if (n0 >= N) {
+        n0 = 0;
+        m0 += MBM;
+      }
+    }
+  };
+  int m0 = 0, n0 = 0, k0 = 0;      // this step
+  int fm0 = 0, fn0 = 0, fk0 = 0;   // the next step of ldS
+  int am0 = 0, an0 = 0, ak0 = 0;   // the next step of the ring
+  // starts step t's copies into its stage and commits them (an empty
+  // group past the last step keeps the count of groups in step)
+  auto fetch_ring = [&](int t) {
+    if (t < steps) {
+      float* slot = my_ring + (t % NS) * STAGE;
+      const int base = ASYNC_A ? am0 : an0, rows = ASYNC_A ? M : N;
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        const int r = r_base + q * R_STEP, k = ak0 + k_base + q * K_STEP;
+        if (base + r < rows) copy(base + r, k, slot + q * Q_FLOATS);
+      }
+    }
+    cp_async_commit();
+    advance(am0, an0, ak0);
+  };
+  auto fetch_regs = [&](bool live) {
+    if (live) {
+      const int base = ASYNC_A ? fn0 : fm0, rows = ASYNC_A ? N : M;
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        const int r = r_base + q * R_STEP, k = fk0 + k_base + q * K_STEP;
+        if (base + r < rows) rs[q] = ldS(base + r, k);
+      }
+    }
+    advance(fm0, fn0, fk0);
+  };
+  float acc[32];   // n8 tile j of the warpgroup's 64 columns at 4 * j
+  for (int t = 0; t < NS; ++t) fetch_ring(t);
+  fetch_regs(true);
+  for (int s = 0; s < steps; ++s) {
+    const int buf = s & (nbuf - 1);
+    cp_async_wait<NS - 1>();   // step s's copies have landed
+    if (!(skip & SKIP_STEP_CONVERT)) {
+      unsigned short* As = oper + buf * (BUF4_BYTES / 2);
+      const float* slot = my_ring + (s % NS) * STAGE;
+      const int zbase = ASYNC_A ? m0 : n0, zrows = ASYNC_A ? M : N;
+      const int sbase = ASYNC_A ? n0 : m0, srows = ASYNC_A ? N : M;
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        const int r = r_base + q * R_STEP, kl = k_base + q * K_STEP;
+        // 128-byte swizzle: chunk of 8 elements ^ (row & 7)
+        const int off =
+            RC ? (r >> 6) * PANEL4 + kl * 64 +
+                     ((((r & 63) >> 3) ^ (kl & 7)) << 3) + (r & 7)
+               : r * MK4 + (((kl >> 3) ^ (r & 7)) << 3) + (kl & 7);
+        uint2 vz = make_uint2(0u, 0u), vs = make_uint2(0u, 0u);
+        if (zbase + r < zrows) vz = cv(slot + q * Q_FLOATS, zbase + r, k0 + kl);
+        if (sbase + r < srows) vs = cvS(rs[q], sbase + r, k0 + kl);
+        *reinterpret_cast<uint2*>(As + off) = ASYNC_A ? vz : vs;
+        *reinterpret_cast<uint2*>(As + TILE4 + off) = ASYNC_A ? vs : vz;
+      }
+    }
+    wgmma_wait(acc);   // the step before's products (two pairs of tiles)
+    fence_async_smem();
+    __syncthreads();
+    if (!(skip & SKIP_STEP_MMA)) {
+      // started before the fetches, which then run beside the products
+      const unsigned long long boff = buf * (BUF4_BYTES >> 4);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < MK4 / 16; ++kk)
+        wgmma_m64n64k16<RC, RC>(acc, desc_a + boff + kk * KADV,
+                                desc_b + boff + kk * KADV, k0 | kk);
+      wgmma_commit();
+    }
+    fetch_ring((skip & SKIP_STEP_FETCH) ? steps : s + NS);
+    fetch_regs(s + 1 < steps && !(skip & SKIP_STEP_FETCH));
+    if (k0 + MK4 == K) {
+      wgmma_wait(acc);
+      const int m = m0 + wm + (warp & 3) * 16 + gid;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + wn + j * 8 + tig * 2;
+        if (n >= N) continue;
+        if (m < M) epi(m, n, acc[4 * j], acc[4 * j + 1]);
+        if (m + 8 < M) epi(m + 8, n, acc[4 * j + 2], acc[4 * j + 3]);
+      }
+      done(m0, n0);
+    } else if (nbuf == 1) {
+      wgmma_wait(acc);
+    }
+    if (nbuf == 1) __syncthreads();
+    advance(m0, n0, k0);
+  }
+  cp_async_wait<0>();
+}
+
 template <bool BF16, bool A_MCONTIG, bool B_KCONTIG, class FA, class FB,
-          class FE>
+          class FE, class FD>
 __device__ void block_gemm(int M, int N, int K, FA ldA, FB ldB, FE epi,
-                           unsigned char* smem) {
+                           FD done, unsigned char* smem) {
   if constexpr (BF16) {
     unsigned short* As = reinterpret_cast<unsigned short*>(smem);
-    gemm_mma<A_MCONTIG, B_KCONTIG>(M, N, K, ldA, ldB, epi, As,
+    gemm_mma<A_MCONTIG, B_KCONTIG>(M, N, K, ldA, ldB, epi, done, As,
                                    As + MBM * MKP);
   } else {
     float* As = reinterpret_cast<float*>(smem);
-    gemm_simt<A_MCONTIG, B_KCONTIG>(M, N, K, ldA, ldB, epi, As,
+    gemm_simt<A_MCONTIG, B_KCONTIG>(M, N, K, ldA, ldB, epi, done, As,
                                     As + BK * BMP);
   }
 }
@@ -463,13 +868,19 @@ __device__ void layer_fwd(const Ctx& C, int l, unsigned char* smem) {
   float* z = C.zbuf(l);
   block_gemm<BF16, false, false>(
       P, H, H,
-      [&](int p, int k) { return C.xval(l - 1, p, k); },
-      [&](int k, int n) { return W[(size_t)k * H + n]; },
+      [&](int p, int k) {
+        if (PGE_CONST & CONST_FWD_A) return (float)((p ^ k) & 7);
+        return C.xval(l - 1, p, k);
+      },
+      [&](int k, int n) {
+        if (PGE_CONST & CONST_FWD_B) return (float)((k + n) & 7);
+        return W[(size_t)k * H + n];
+      },
       [&](int p, int n, float v0, float v1) {
         *reinterpret_cast<float2*>(&z[(size_t)p * H + n]) =
             make_float2(v0 + bias[n], v1 + bias[n + 1]);
       },
-      smem);
+      [](int, int) {}, smem);
 }
 
 // Forward of one tile up to the top layer's statistics, into the tile's
@@ -479,9 +890,9 @@ __device__ void tile_forward(const Ctx& C, unsigned char* smem) {
   stats0(C);
   __syncthreads();
   for (int l = 1; l <= C.A.L2; ++l) {
-    layer_fwd<BF16>(C, l, smem);
+    if (!PGE_SKIP(SKIP_FWD_MATMUL)) layer_fwd<BF16>(C, l, smem);
     __syncthreads();
-    stats(C, l);
+    if (!PGE_SKIP(SKIP_FWD_STATS)) stats(C, l);
     __syncthreads();
   }
 }
@@ -502,7 +913,7 @@ pge_fwd_kernel(Params A, float* out) {
       float s = 0.f;
 #pragma unroll 8
       for (int c = lane; c < A.H; c += 32)
-        s += C.xval(A.L2, p, c) * A.wlast[c];
+        if (!PGE_SKIP(SKIP_FWD_DOT)) s += C.xval(A.L2, p, c) * A.wlast[c];
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
       if (lane == 0)
@@ -513,7 +924,30 @@ pge_fwd_kernel(Params A, float* out) {
 }
 
 // ---------------------------------------------------------------------------
-// Backward
+// Backward: apply on load, reduce in the epilogue.
+//
+// A tile's gradient never goes through device memory.  For each hidden
+// layer l from the top:
+//   reduce_pass   one sweep over z_l gives the tile's dgamma, dbeta (and
+//                 dwlast at the top); from them the per-channel constants
+//                 of dz_l = dy*sg - c1 - xhat*c2, kept in shared memory;
+//   dW product    dW_{l-1} += X_{l-1}^T dz_l: X_{l-1} (BN + ReLU of
+//                 z_{l-1}) and dz_l are both computed while the operand is
+//                 staged;
+//   dX product    dX_{l-1} = dz_l W^T, dz_l computed on load again.  Its
+//                 output tile is not stored for layer 0: it lands in
+//                 shared memory, where l0_tile_sums applies ReLU' of
+//                 a[i] + b[j] and keeps only the sums over the tile's rows
+//                 and columns.  The pairs are ordered so that a 128-row
+//                 output tile holds all 16 tile rows of 8 tile columns:
+//                 the column sums are complete within it and the row sums
+//                 add up in a [16, H] buffer in shared memory.
+//   finish0       xhat_0 = (a[i] + b[j] - mu) invstd has closed-form row
+//                 and column sums, so dgamma_0, dbeta_0, da and db follow
+//                 from the row and column sums of dy_0 alone.
+// A middle layer (L2 >= 2) writes its raw dX once to a per-block buffer;
+// the layer below reads it in its reduce_pass and in its two products.
+// Every sum has a fixed order (no atomics): runs repeat bit for bit.
 // ---------------------------------------------------------------------------
 
 struct Grads {
@@ -525,175 +959,558 @@ struct Grads {
   float* dwlast;      // per block [H]
   float* da_part;     // [nj, ni * TI, H]
   float* db_part;     // [ni, nj * TJ, H]
-  float* dbuf;        // per block: 2 x P x H gradient buffers
-  int ni;
+  float* dbuf;        // per block: nbuf x P x H raw dX of middle layers
+  int ni, nbuf;       // nbuf = min(2, L2 - 1), 0 for L2 <= 1
 };
 
-// The per-pair passes below walk a channel's P pairs in groups of U: the
-// group's loads are issued before its stores, so U loads are in flight
-// (the stores to D could alias the loads, which stops the compiler from
-// hoisting them itself).  U divides TJ: a group lies in one tile row.
-constexpr int U = 16;
+constexpr int TM = 128;           // output-tile rows of both matmuls
+constexpr int MAX_SMEM_BLOCK = 232448;   // shared memory of a block, H100
+constexpr int NCONST = 7;         // per-channel constant rows (BwdSmem)
+constexpr int MAX_H_BWD = 1024;   // reduce_pass: a thread per 4 channels
+                                  // (256 threads cover 1024)
 
-// Upstream gradient through layer l's ReLU: dy = relu'(pre) * up, where
-// up = g * wlast for the top layer and D (the gradient of x_l) otherwise.
-// Writes dy to D (0 at invalid pairs) and reduces this tile's dgamma and
-// dbeta of layer l.
-__device__ void relu_back(const Ctx& C, const Grads& G, int l, bool top,
-                          float* D, float* pdgamma, float* pdbeta,
-                          float* pdwlast) {
+// Threads of a backward block and blocks an SM should hold: the tensor-
+// core version runs gemm_stage4 (one block of 512), the fp32 version
+// gemm_simt4 (two of 256).
+template <bool BF16>
+struct BwdThreads {
+  static constexpr int N = BF16 ? NT4 : NT;
+  static constexpr int BLOCKS = BF16 ? 1 : 2;
+};
+
+// Output-tile columns of the matmul version, and the row pitch of the
+// shared-memory copy of a dX output tile.
+template <bool BF16>
+struct OutTile {
+  static constexpr int TN = BF16 ? MBN : BN;
+  static constexpr int EP = TN + 4;
+};
+
+// Dynamic shared memory of the backward kernel: matmul operands (also the
+// column-sum scratch of l0_tile_sums), the dX output tile (also the
+// scratch of reduce_pass), the [TI, H] row sums, the constants, the
+// tile's upstream gradient, and for the tensor-core version the ring of
+// workspace loads in flight.
+__host__ __device__ constexpr int bwd_rest_bytes(int H, bool bf16) {
+  return TM * ((bf16 ? MBN : BN) + 4) * 4 + (TI + NCONST) * H * 4 + P * 4
+         + (bf16 ? RING_FLOATS * 4 : 0);
+}
+
+// Pairs of operand tiles of the tensor-core version: two where a block's
+// shared memory holds them (H <= 256), else one.
+__host__ __device__ constexpr int bwd_oper_bufs(int H) {
+  return 2 * BUF4_BYTES + bwd_rest_bytes(H, true) <= MAX_SMEM_BLOCK ? 2 : 1;
+}
+
+// The fp32 version's operand tiles and column-sum scratch fit 16 KB.
+__host__ __device__ constexpr int bwd_oper_bytes(int H, bool bf16) {
+  return bf16 ? bwd_oper_bufs(H) * BUF4_BYTES : 16 * 1024;
+}
+
+__host__ __device__ constexpr int bwd_smem_bytes(int H, bool bf16) {
+  return bwd_oper_bytes(H, bf16) + bwd_rest_bytes(H, bf16);
+}
+
+struct BwdSmem {
+  unsigned char* oper;
+  float* E;      // [TM, EP]
+  float* R;      // [TI, H]
+  float* SC;     // layer l: scale, shift (the forward's ReLU decision)
+  float* SH;
+  float* WS;     // dy * sg = (pre > 0) * up * WS
+  float* K0;     // dz = dy * sg - K0 - z * K1
+  float* K1;
+  float* PSC;    // layer l - 1: scale, shift
+  float* PSH;
+  float* GS;     // [P] g of the tile's pairs, 0 outside [n, n]
+  float* ring;   // [RING_FLOATS] (tensor-core version)
+  template <bool BF16>
+  __device__ void carve(unsigned char* base, int H) {
+    oper = base;
+    E = reinterpret_cast<float*>(base + bwd_oper_bytes(H, BF16));
+    R = E + TM * OutTile<BF16>::EP;
+    SC = R + TI * H;
+    SH = SC + H;
+    WS = SH + H;
+    K0 = WS + H;
+    K1 = K0 + H;
+    PSC = K1 + H;
+    PSH = PSC + H;
+    GS = PSH + H;
+    ring = GS + P;
+  }
+};
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// A float4 of the workspace, read once per pass: it bypasses L1, which the
+// backward's shared memory leaves about 28 KB of an SM, too little to hold
+// a line for every load in flight.
+__device__ __forceinline__ float4 ld4_stream(const float* p) {
+  float4 v;
+  asm volatile("ld.global.L1::no_allocate.v4.f32 {%0,%1,%2,%3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ float gval(const Ctx& C, const Grads& G, int p) {
+  return G.g[(size_t)(C.T.i * TI + p / TJ) * C.A.n + C.T.j * TJ + p % TJ];
+}
+
+// One sweep over layer l >= 1 of the tile: dgamma, dbeta, sum of xhat, and
+// for the top layer dwlast, where dy = relu'(pre) * up and up = g * wlast
+// (TOP) or the raw dX in Din.  A thread owns 4 channels and every Gp-th
+// pair, UR loads in flight; the groups' partial sums meet in `scratch`
+// (4 sums x block size x 4 floats: 16 or 32 KB of the E tile) and
+// are added in group order.  Leaves the constants of dz_l and the scale
+// and shift of layer l - 1 in shared memory and adds the tile's share to
+// the block's partial gradients.  Ends synchronized.
+template <bool TOP>
+__device__ void reduce_pass(const Ctx& C, const Grads& G, int l,
+                            const float* Din, const BwdSmem& M,
+                            float* pdgamma, float* pdbeta, float* pdwlast,
+                            float* pdbmid) {
+  constexpr int UR = 4;
+  float* scratch = M.E;   // [4 sums, Gp, H], at most 32 KB
   const Params& A = C.A;
-  const int H = A.H;
-  for (int c = threadIdx.x; c < H; c += NT) {
-    const float mu = C.S.mean(l)[c], is = C.S.invstd(l)[c];
-    const float gm = A.gamma[l * H + c], bt = A.beta[l * H + c];
-    const float wl = A.wlast[c];
-    float dgam = 0.f, dbet = 0.f, dwl = 0.f;
-    for (int p0 = 0; p0 < P; p0 += U) {
-      float z[U], up[U];
+  const int H = A.H, Q = H >> 2, Gp = blockDim.x / Q;
+  const int cq = threadIdx.x % Q, pg = threadIdx.x / Q, c4 = cq * 4;
+  const float* Z = C.zbuf(l);
+  if (pg < Gp) {
+    const float4 mu = ld4(C.S.mean(l) + c4), is = ld4(C.S.invstd(l) + c4);
+    const float4 sc = ld4(C.S.scale(l) + c4), sh = ld4(C.S.shift(l) + c4);
+    const float4 wl = TOP ? ld4(A.wlast + c4) : make_float4(1, 1, 1, 1);
+    float sb[4] = {0, 0, 0, 0}, sg[4] = {0, 0, 0, 0};
+    float sw[4] = {0, 0, 0, 0}, sx[4] = {0, 0, 0, 0};
+    const float muv[4] = {mu.x, mu.y, mu.z, mu.w};
+    const float isv[4] = {is.x, is.y, is.z, is.w};
+    const float scv[4] = {sc.x, sc.y, sc.z, sc.w};
+    const float shv[4] = {sh.x, sh.y, sh.z, sh.w};
+    const float wlv[4] = {wl.x, wl.y, wl.z, wl.w};
+    for (int p0 = pg; p0 < P; p0 += Gp * UR) {
+      float4 z[UR], up[UR];
+      float gv[UR];
+      bool ok[UR];
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int p = p0 + u;
-        const bool ok = valid(C.T, p);
-        z[u] = ok ? C.zval(l, p, c) : 0.f;
-        if (top) {
-          const int gi = C.T.i * TI + p / TJ, gj = C.T.j * TJ + p % TJ;
-          up[u] = ok ? G.g[(size_t)gi * A.n + gj] : 0.f;
-        } else {
-          up[u] = ok ? D[(size_t)p * H + c] : 0.f;
-        }
+      for (int u = 0; u < UR; ++u) {
+        const int p = p0 + u * Gp;
+        ok[u] = p < P && valid(C.T, p);
+        z[u] = ok[u] ? ld4_stream(Z + (size_t)p * H + c4)
+                     : make_float4(0, 0, 0, 0);
+        gv[u] = TOP && ok[u] ? M.GS[p] : 0.f;
+        up[u] = !TOP && ok[u] ? ld4_stream(Din + (size_t)p * H + c4)
+                              : make_float4(0, 0, 0, 0);
       }
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int p = p0 + u;
-        float dy = 0.f;
-        if (valid(C.T, p)) {
-          const float xh = (z[u] - mu) * is;
-          const float pre = xh * gm + bt;
-          if (top) dwl += fmaxf(pre, 0.f) * up[u];
-          dy = pre > 0.f ? (top ? up[u] * wl : up[u]) : 0.f;
-          dgam += dy * xh;
-          dbet += dy;
+      for (int u = 0; u < UR; ++u) {
+        if (!ok[u]) continue;
+        const float zv[4] = {z[u].x, z[u].y, z[u].z, z[u].w};
+        const float uv[4] = {up[u].x, up[u].y, up[u].z, up[u].w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float xh = (zv[k] - muv[k]) * isv[k];
+          const float pre = fmaf(zv[k], scv[k], shv[k]);
+          const float upv = TOP ? gv[u] * wlv[k] : uv[k];
+          const float dy = pre > 0.f ? upv : 0.f;
+          sb[k] += dy;
+          sg[k] += dy * xh;
+          sx[k] += xh;
+          if (TOP) sw[k] += fmaxf(pre, 0.f) * gv[u];
         }
-        D[(size_t)p * H + c] = dy;
       }
     }
-    C.S.tdg()[c] = dgam;
-    C.S.tdb()[c] = dbet;
+    float* o = scratch + (size_t)pg * H + c4;
+    const size_t stride = (size_t)Gp * H;
+    *reinterpret_cast<float4*>(o) = make_float4(sb[0], sb[1], sb[2], sb[3]);
+    *reinterpret_cast<float4*>(o + stride) =
+        make_float4(sg[0], sg[1], sg[2], sg[3]);
+    *reinterpret_cast<float4*>(o + 2 * stride) =
+        make_float4(sx[0], sx[1], sx[2], sx[3]);
+    *reinterpret_cast<float4*>(o + 3 * stride) =
+        make_float4(sw[0], sw[1], sw[2], sw[3]);
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < H; c += blockDim.x) {
+    float dbet = 0.f, dgam = 0.f, sxh = 0.f, dwl = 0.f;
+    for (int q = 0; q < Gp; ++q) {
+      const float* o = scratch + (size_t)q * H + c;
+      const size_t stride = (size_t)Gp * H;
+      dbet += o[0];
+      dgam += o[stride];
+      sxh += o[2 * stride];
+      dwl += o[3 * stride];
+    }
+    const float is = C.S.invstd(l)[c], mu = C.S.mean(l)[c];
+    const float sgc = A.gamma[l * H + c] * is;
+    const float c1 = sgc * dbet / C.T.count, c2 = sgc * dgam / C.T.count;
+    M.SC[c] = C.S.scale(l)[c];
+    M.SH[c] = C.S.shift(l)[c];
+    M.WS[c] = TOP ? A.wlast[c] * sgc : sgc;
+    M.K1[c] = is * c2;
+    M.K0[c] = c1 - mu * (is * c2);
+    M.PSC[c] = C.S.scale(l - 1)[c];
+    M.PSH[c] = C.S.shift(l - 1)[c];
     pdgamma[l * H + c] += dgam;
     pdbeta[l * H + c] += dbet;
-    if (top) pdwlast[c] += dwl;
+    if (TOP) pdwlast[c] += dwl;
+    // sum of dz over the pairs (analytically 0), from the same sums
+    pdbmid[(l - 1) * H + c] += sgc * dbet - C.T.count * c1 - c2 * sxh;
+  }
+  __syncthreads();
+}
+
+// The top layer is layer 0 (L2 = 0): row and column sums of
+// dy_0 = relu'(pre_0) g wlast straight from a, b and g, a thread per
+// channel; R in shared memory, the column sums in the tile's db slot.
+__device__ void layer0_direct(const Ctx& C, const Grads& G, float* R,
+                              float* ccol, float* pdwlast) {
+  const Params& A = C.A;
+  const Tile& T = C.T;
+  const int H = A.H;
+  for (int c = threadIdx.x; c < H; c += blockDim.x) {
+    const float sc = C.S.scale(0)[c], sh = C.S.shift(0)[c];
+    const float wl = A.wlast[c];
+    float dwl = 0.f;
+    for (int r = 0; r < TI; ++r) {
+      float rs = 0.f;
+      if (r < T.nvr) {
+        const float av = A.a[(size_t)(T.i * TI + r) * H + c];
+        for (int q = 0; q < T.nvc; ++q) {
+          const float bv = A.b[(size_t)(T.j * TJ + q) * H + c];
+          const float pre = fmaf(av + bv, sc, sh);
+          const float gv = gval(C, G, r * TJ + q);
+          if (pre > 0.f) {
+            rs += gv * wl;
+            dwl += pre * gv;
+          }
+        }
+      }
+      R[r * H + c] = rs;
+    }
+    for (int q = 0; q < TJ; ++q) {
+      float cs = 0.f;
+      if (q < T.nvc) {
+        const float bv = A.b[(size_t)(T.j * TJ + q) * H + c];
+        for (int r = 0; r < T.nvr; ++r) {
+          const float av = A.a[(size_t)(T.i * TI + r) * H + c];
+          const float pre = fmaf(av + bv, sc, sh);
+          if (pre > 0.f) cs += gval(C, G, r * TJ + q) * wl;
+        }
+      }
+      ccol[(size_t)q * H + c] = cs;
+    }
+    pdwlast[c] += dwl;
   }
 }
 
-// Batch-statistics BatchNorm backward of layer l, in place on D:
-// dz = (gamma dy - gamma dbeta / count - xhat gamma dgamma / count) invstd.
-__device__ void bn_back(const Ctx& C, int l, float* D, float* pdbmid) {
+// After output tile (m0, n0) of the layer-0 dX product: E holds raw dX_0
+// of pairs m0 .. m0 + 127 (pair m = tile column m / 16, tile row m % 16)
+// for channels n0 .. n0 + TN.  Applies relu'(pre_0) and the pair mask,
+// writes the 8 columns' sums over the tile rows to ccol and adds the row
+// sums over these 8 columns into R.  A thread owns a channel and 16 / NH
+// tile rows; the NH row groups' column sums meet in Cc.
+template <bool BF16>
+__device__ void l0_tile_sums(const Ctx& C, int m0, int n0,
+                             const BwdSmem& M, float* ccol) {
+  constexpr int TN = OutTile<BF16>::TN, EP = OutTile<BF16>::EP;
+  constexpr int NTH = BwdThreads<BF16>::N;
+  constexpr int NH = NTH / TN, RPT = TI / NH, NQ = TM / TI;
+  float* Cc = reinterpret_cast<float*>(M.oper);   // [NH, NQ, TN]
+  const Tile& T = C.T;
+  const int H = C.A.H;
+  const int cl = threadIdx.x % TN, hh = threadIdx.x / TN, c = n0 + cl;
+  const int q0 = m0 / TI;
+  const bool okc = c < H;   // a 128-wide output tile of a narrower layer
+  __syncthreads();   // every warp's part of E is written
+  const float sc = okc ? M.PSC[c] : 0.f, sh = okc ? M.PSH[c] : 0.f;
+  float av[RPT], rs[RPT];
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    const int r = hh * RPT + k;
+    av[k] = okc && r < T.nvr ? C.A.a[(size_t)(T.i * TI + r) * H + c] : 0.f;
+    rs[k] = 0.f;
+  }
+#pragma unroll
+  for (int ql = 0; ql < NQ; ++ql) {
+    const int q = q0 + ql;
+    const bool okq = okc && q < T.nvc;
+    const float bv = okq ? C.A.b[(size_t)(T.j * TJ + q) * H + c] : 0.f;
+    float cs = 0.f;
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) {
+      const int r = hh * RPT + k;
+      const float pre = fmaf(av[k] + bv, sc, sh);
+      const float e = M.E[(ql * TI + r) * EP + cl];
+      const float dy = (okq && r < T.nvr && pre > 0.f) ? e : 0.f;
+      cs += dy;
+      rs[k] += dy;
+    }
+    Cc[(hh * NQ + ql) * TN + cl] = cs;
+  }
+#pragma unroll
+  for (int k = 0; k < RPT; ++k)
+    if (okc) M.R[(hh * RPT + k) * H + c] += rs[k];
+  __syncthreads();
+  for (int o = threadIdx.x; o < NQ * TN; o += NTH) {
+    const int ql = o / TN, c2 = o % TN;
+    float s = 0.f;
+#pragma unroll
+    for (int h = 0; h < NH; ++h) s += Cc[(h * NQ + ql) * TN + c2];
+    if (n0 + c2 < H) ccol[(size_t)(q0 + ql) * H + n0 + c2] = s;
+  }
+  __syncthreads();   // Cc is the next step's operand buffer
+}
+
+// Layer 0 from the row sums R [TI, H] (shared memory) and column sums
+// ccol [TJ, H] (the tile's db slot) of dy_0: dbeta_0, dgamma_0, then
+// da[r] = sum_q dz_0 and db[q] = sum_r dz_0 in closed form.  The sums
+// over rows and columns run in double; a thread per channel.
+__device__ void finish0(const Ctx& C, const Grads& G, const float* R,
+                        float* ccol, float* pdgamma, float* pdbeta) {
+  const Params& A = C.A;
+  const Tile& T = C.T;
+  const int H = A.H;
+  const float nvr = (float)T.nvr, nvc = (float)T.nvc;
+  for (int c = threadIdx.x; c < H; c += blockDim.x) {
+    const float mu = C.S.mean(0)[c], is = C.S.invstd(0)[c];
+    const float* ar = A.a + (size_t)(T.i * TI) * H + c;
+    const float* bq = A.b + (size_t)(T.j * TJ) * H + c;
+    double dbs = 0, sar = 0, sa = 0, sbc = 0, sb = 0;
+    for (int r = 0; r < T.nvr; ++r) {
+      const double av = ar[(size_t)r * H], rv = R[r * H + c];
+      dbs += rv;
+      sar += av * rv;
+      sa += av;
+    }
+#pragma unroll 8
+    for (int q = 0; q < T.nvc; ++q) {
+      const double bv = bq[(size_t)q * H], cv = ccol[(size_t)q * H + c];
+      sbc += bv * cv;
+      sb += bv;
+    }
+    const float dbet = (float)dbs;
+    const float dgam = (float)((double)is * (sar + sbc - (double)mu * dbs));
+    const float sgc = A.gamma[c] * is;
+    const float c1 = sgc * dbet / T.count;
+    const float c2i = sgc * dgam / T.count * is;
+    pdgamma[c] += dgam;
+    pdbeta[c] += dbet;
+    const float fsa = (float)sa, fsb = (float)sb;
+    float* da = G.da_part +
+                ((size_t)T.j * G.ni * TI + T.i * TI) * H + c;
+    for (int r = 0; r < TI; ++r) {
+      float v = 0.f;
+      if (r < T.nvr)
+        v = sgc * R[r * H + c] - nvc * c1 -
+            c2i * (nvc * ar[(size_t)r * H] + fsb - nvc * mu);
+      da[(size_t)r * H] = v;
+    }
+#pragma unroll 8
+    for (int q = 0; q < TJ; ++q) {
+      float v = 0.f;
+      if (q < T.nvc)
+        v = sgc * ccol[(size_t)q * H + c] - nvr * c1 -
+            c2i * (nvr * bq[(size_t)q * H] + fsa - nvr * mu);
+      ccol[(size_t)q * H + c] = v;
+    }
+  }
+}
+
+// The block's partial parameter gradients.
+struct Partials {
+  float *dwmid, *dbmid, *dgamma, *dbeta, *dwlast;
+};
+
+// Hidden layer l >= 1 of the tile: the reduction pass, then
+// dW_{l-1} += X_{l-1}^T dz_l and dX_{l-1} = dz_l W^T with dz_l computed as
+// the operands are staged.  TOP: l is the top layer (the upstream gradient
+// is g wlast), else it is the raw dX in Din.  The dX product keeps only
+// row and column sums for layer 0 (l == 1) and writes raw dX to Dout for
+// a middle layer.
+template <bool BF16, bool TOP>
+__device__ void bwd_layer(const Ctx& C, const Grads& G, const BwdSmem& M,
+                          int l, const float* Din, float* Dout, float* ccol,
+                          const Partials& pd) {
+  constexpr int TN = OutTile<BF16>::TN, EP = OutTile<BF16>::EP;
   const Params& A = C.A;
   const int H = A.H;
-  for (int c = threadIdx.x; c < H; c += NT) {
-    const float mu = C.S.mean(l)[c], is = C.S.invstd(l)[c];
-    const float gm = A.gamma[l * H + c];
-    const float m1 = gm * C.S.tdb()[c] / C.T.count;
-    const float m2 = gm * C.S.tdg()[c] / C.T.count;
-    float dbm = 0.f;
-    for (int p0 = 0; p0 < P; p0 += U) {
-      // an invalid first pair: the rest of the group (same row, later
-      // columns) is invalid too
-      if (!valid(C.T, p0)) continue;
-      float z[U], dy[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int p = p0 + u;
-        const bool ok = valid(C.T, p);
-        z[u] = ok ? C.zval(l, p, c) : 0.f;
-        dy[u] = D[(size_t)p * H + c];  // 0 at invalid pairs (relu_back)
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int p = p0 + u;
-        if (!valid(C.T, p)) continue;    // stays 0
-        const float xh = (z[u] - mu) * is;
-        const float dz = (gm * dy[u] - m1 - xh * m2) * is;
-        D[(size_t)p * H + c] = dz;
-        dbm += dz;
-      }
+  const bool to0 = l == 1;
+  if (!PGE_SKIP(SKIP_REDUCE))
+    reduce_pass<TOP>(C, G, l, Din, M, pd.dgamma, pd.dbeta, pd.dwlast,
+                     pd.dbmid);
+  const float* Z = C.zbuf(l);
+  const float* W = A.wmid + (size_t)(l - 1) * H * H;
+  float* dW = pd.dwmid + (size_t)(l - 1) * H * H;
+  auto epi_dw = [&](int m, int n, float v0, float v1) {
+    float2* o = reinterpret_cast<float2*>(&dW[(size_t)m * H + n]);
+    float2 w = *o;
+    w.x += v0;
+    w.y += v1;
+    *o = w;
+  };
+  auto epi_dx = [&](int m, int n, float v0, float v1) {
+    float* o = to0 ? &M.E[(m % TM) * EP + n % TN] : &Dout[(size_t)m * H + n];
+    *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+  };
+  auto done_dx = [&](int m0, int n0) {
+    if (to0 && !PGE_SKIP(SKIP_L0_SUMS))
+      l0_tile_sums<BF16>(C, m0, n0, M, ccol);
+  };
+  auto noop = [](int, int) {};
+  // row m of the dX product is pair m, for layer 0 pair (m % TI, m / TI)
+  auto pair_of = [&](int m) { return to0 ? (m % TI) * TJ + m / TI : m; };
+
+  // dz_l of a pair at channels c .. c + 3, from z_l there, the upstream
+  // gradient (g of the pair, or the raw dX of a middle layer) and the
+  // layer's constants
+  auto dz4 = [&](const float4& z, const float4& up, int c) {
+    const float4 sc = ld4(M.SC + c), sh = ld4(M.SH + c);
+    const float4 ws = ld4(M.WS + c), k0 = ld4(M.K0 + c);
+    const float4 k1 = ld4(M.K1 + c);
+    float4 v;
+    v.x = (fmaf(z.x, sc.x, sh.x) > 0.f ? up.x * ws.x : 0.f) - k0.x -
+          z.x * k1.x;
+    v.y = (fmaf(z.y, sc.y, sh.y) > 0.f ? up.y * ws.y : 0.f) - k0.y -
+          z.y * k1.y;
+    v.z = (fmaf(z.z, sc.z, sh.z) > 0.f ? up.z * ws.z : 0.f) - k0.z -
+          z.z * k1.z;
+    v.w = (fmaf(z.w, sc.w, sh.w) > 0.f ? up.w * ws.w : 0.f) - k0.w -
+          z.w * k1.w;
+    return v;
+  };
+  // X_{l-1} of pair p, channels m .. m + 3: a[i] + b[j] (layer 0, from
+  // cache) or the workspace, then BatchNorm and ReLU
+  auto x4 = [&](int m, int p) {
+    float4 z;
+    if (to0) {
+      const int gi = C.T.i * TI + p / TJ, gj = C.T.j * TJ + p % TJ;
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 av = gi < A.n ? ld4(A.a + (size_t)gi * H + m) : zero;
+      const float4 bv = gj < A.n ? ld4(A.b + (size_t)gj * H + m) : zero;
+      z = make_float4(av.x + bv.x, av.y + bv.y, av.z + bv.z, av.w + bv.w);
+    } else {
+      z = ld4_stream(C.zbuf(l - 1) + (size_t)p * H + m);
     }
-    if (l > 0) pdbmid[(l - 1) * H + c] += dbm;
+    const float4 sc = ld4(M.PSC + m), sh = ld4(M.PSH + m);
+    return make_float4(fmaxf(fmaf(z.x, sc.x, sh.x), 0.f),
+                       fmaxf(fmaf(z.y, sc.y, sh.y), 0.f),
+                       fmaxf(fmaf(z.z, sc.z, sh.z), 0.f),
+                       fmaxf(fmaf(z.w, sc.w, sh.w), 0.f));
+  };
+
+  if constexpr (BF16) {
+    unsigned short* As = reinterpret_cast<unsigned short*>(M.oper);
+    // the workspace operand: the copies of z_l (and of the raw dX of a
+    // middle layer) into the thread's ring slot, and dz_l from the slot
+    constexpr int NSRC = TOP ? 1 : 2;
+    auto dz_copy = [&](int p, int c, float* slot) {
+      if ((PGE_CONST & CONST_DZ_NOLOAD) || !valid(C.T, p)) return;
+      cp_async16(slot, Z + (size_t)p * H + c);
+      if (!TOP) cp_async16(slot + 4, Din + (size_t)p * H + c);
+    };
+    auto dz_val = [&](const float* slot, int p, int c) {
+      if (PGE_CONST & CONST_DZ_NOCVT)
+        return make_uint2(BF16_ONES, BF16_ONES);
+      if (!valid(C.T, p)) return make_uint2(0u, 0u);
+      float4 up;
+      if (TOP) {
+        const float g = M.GS[p];
+        up = make_float4(g, g, g, g);
+      } else {
+        up = ld4(slot + 4);
+      }
+      return pack4(dz4(ld4(slot), up, c));
+    };
+    // X_{l-1} is finished at once and held as 4 bf16 (holding the loads
+    // instead cost registers and gained nothing)
+    auto x_ld = [&](int m, int p) {
+      if (PGE_CONST & CONST_X) return make_uint2(BF16_ONES, BF16_ONES);
+      return pack4(x4(m, p));
+    };
+    auto held = [](const uint2& v, int, int) { return v; };
+    // dW += X_{l-1}^T @ dZ_l   (reduction over the tile's pairs)
+    const int nbuf = bwd_oper_bufs(H);
+    if (!PGE_SKIP(SKIP_DW)) gemm_stage4<true, false, NSRC>(
+        H, H, P,
+        [&](int n, int p, float* slot) { dz_copy(p, n, slot); },
+        [&](const float* slot, int n, int p) { return dz_val(slot, p, n); },
+        x_ld, held, epi_dw, noop, As, nbuf, M.ring);
+    // dX_{l-1} = dZ_l @ W^T
+    if (!PGE_SKIP(SKIP_DX)) gemm_stage4<false, true, NSRC>(
+        P, H, H,
+        [&](int m, int k, float* slot) { dz_copy(pair_of(m), k, slot); },
+        [&](const float* slot, int m, int k) {
+          return dz_val(slot, pair_of(m), k);
+        },
+        [&](int n, int k) { return pack4(ld4(W + (size_t)n * H + k)); },
+        held, epi_dx, done_dx, As, nbuf, M.ring);
+  } else {
+    float* As = reinterpret_cast<float*>(M.oper);
+    auto dz_ld = [&](int p, int c) {
+      if (!valid(C.T, p)) return make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 up;
+      if (TOP) {
+        const float g = M.GS[p];
+        up = make_float4(g, g, g, g);
+      } else {
+        up = ld4(Din + (size_t)p * H + c);
+      }
+      return dz4(ld4(Z + (size_t)p * H + c), up, c);
+    };
+    gemm_simt4<true>(
+        H, H, P, x4, [&](int n, int p) { return dz_ld(p, n); }, epi_dw, noop,
+        As, As + BK * BMP);
+    gemm_simt4<false>(
+        P, H, H, [&](int m, int k) { return dz_ld(pair_of(m), k); },
+        [&](int n, int k) { return ld4(W + (size_t)n * H + k); }, epi_dx,
+        done_dx, As, As + BK * BMP);
   }
+  __syncthreads();
 }
 
 template <bool BF16>
-__global__ void __launch_bounds__(NT, 2)
+__global__ void __launch_bounds__(BwdThreads<BF16>::N,
+                                  BwdThreads<BF16>::BLOCKS)
 pge_bwd_kernel(Params A, Grads G) {
-  __shared__ __align__(16) unsigned char smem[SMEM_BYTES];
+  extern __shared__ __align__(1024) unsigned char bwd_smem[];
   const int H = A.H, L2 = A.L2;
   const size_t PH = (size_t)P * H;
   Ctx C(A);
-  float* Dbuf[2] = {G.dbuf + blockIdx.x * 2 * PH,
-                    G.dbuf + (blockIdx.x * 2 + 1) * PH};
-  float* pdwmid = G.dwmid + (size_t)blockIdx.x * L2 * H * H;
-  float* pdbmid = G.dbmid + (size_t)blockIdx.x * L2 * H;
-  float* pdgamma = G.dgamma + (size_t)blockIdx.x * (L2 + 1) * H;
-  float* pdbeta = G.dbeta + (size_t)blockIdx.x * (L2 + 1) * H;
-  float* pdwlast = G.dwlast + (size_t)blockIdx.x * H;
+  BwdSmem M;
+  M.carve<BF16>(bwd_smem, H);
+  Partials pd;
+  pd.dwmid = G.dwmid + (size_t)blockIdx.x * L2 * H * H;
+  pd.dbmid = G.dbmid + (size_t)blockIdx.x * L2 * H;
+  pd.dgamma = G.dgamma + (size_t)blockIdx.x * (L2 + 1) * H;
+  pd.dbeta = G.dbeta + (size_t)blockIdx.x * (L2 + 1) * H;
+  pd.dwlast = G.dwlast + (size_t)blockIdx.x * H;
+  // raw dX of a middle layer l sits in the block's buffer (l & 1) % nbuf
+  float* blockbuf = G.dbuf + (size_t)blockIdx.x * G.nbuf * PH;
 
   for (int t = blockIdx.x; t < A.ntiles; t += gridDim.x) {
     C.at(t);   // the forward kernel's workspace and statistics
-    float* D = Dbuf[0];
-    float* D2 = Dbuf[1];
-    relu_back(C, G, L2, true, D, pdgamma, pdbeta, pdwlast);
+    // the tile's db slot holds the column sums of dy_0 until finish0
+    float* ccol = G.db_part +
+                  ((size_t)C.T.i * A.nj * TJ + C.T.j * TJ) * H;
+    for (int i = threadIdx.x; i < TI * H; i += blockDim.x) M.R[i] = 0.f;
+    for (int p = threadIdx.x; p < P; p += blockDim.x)
+      M.GS[p] = valid(C.T, p) ? gval(C, G, p) : 0.f;
     __syncthreads();
+    if (L2 == 0) layer0_direct(C, G, M.R, ccol, pd.dwlast);
     for (int l = L2; l >= 1; --l) {
-      bn_back(C, l, D, pdbmid);
-      __syncthreads();
-      const float* W = A.wmid + (size_t)(l - 1) * H * H;
-      float* dW = pdwmid + (size_t)(l - 1) * H * H;
-      // dW += X_{l-1}^T @ dZ_l   (reduction over the tile's pairs)
-      block_gemm<BF16, true, false>(
-          H, H, P,
-          [&](int m, int p) { return C.xval(l - 1, p, m); },
-          [&](int p, int n) { return D[(size_t)p * H + n]; },
-          [&](int m, int n, float v0, float v1) {
-            float2* o = reinterpret_cast<float2*>(&dW[(size_t)m * H + n]);
-            float2 w = *o;
-            w.x += v0;
-            w.y += v1;
-            *o = w;
-          },
-          smem);
-      // dX_{l-1} = dZ_l @ W^T
-      block_gemm<BF16, false, true>(
-          P, H, H,
-          [&](int p, int k) { return D[(size_t)p * H + k]; },
-          [&](int k, int n) { return W[(size_t)n * H + k]; },
-          [&](int p, int n, float v0, float v1) {
-            *reinterpret_cast<float2*>(&D2[(size_t)p * H + n]) =
-                make_float2(v0, v1);
-          },
-          smem);
-      __syncthreads();
-      relu_back(C, G, l - 1, false, D2, pdgamma, pdbeta, pdwlast);
-      __syncthreads();
-      float* tmp = D;
-      D = D2;
-      D2 = tmp;
+      float* Dout = l == 1 ? nullptr : blockbuf + ((l - 1) & 1) % G.nbuf * PH;
+      if (l == L2)
+        bwd_layer<BF16, true>(C, G, M, l, nullptr, Dout, ccol, pd);
+      else
+        bwd_layer<BF16, false>(C, G, M, l, blockbuf + (l & 1) % G.nbuf * PH,
+                               Dout, ccol, pd);
     }
-    bn_back(C, 0, D, pdbmid);
     __syncthreads();
-    // da[i] = sum over the tile's columns, db[j] = sum over its rows.
-    for (int c = threadIdx.x; c < H; c += NT) {
-      for (int r = 0; r < TI; ++r) {
-        float s = 0.f;
-        for (int q = 0; q < TJ; ++q) s += D[(size_t)(r * TJ + q) * H + c];
-        G.da_part[((size_t)C.T.j * G.ni * TI + C.T.i * TI + r) * H + c] = s;
-      }
-      for (int q = 0; q < TJ; ++q) {
-        float s = 0.f;
-        for (int r = 0; r < TI; ++r) s += D[(size_t)(r * TJ + q) * H + c];
-        G.db_part[((size_t)C.T.i * A.nj * TJ + C.T.j * TJ + q) * H + c] = s;
-      }
-    }
+    if (!PGE_SKIP(SKIP_FINISH0))
+      finish0(C, G, M.R, ccol, pd.dgamma, pd.dbeta);
     __syncthreads();
   }
 }

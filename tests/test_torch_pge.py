@@ -77,6 +77,74 @@ def test_plain_matches_jax_ref_forward_and_grads(n, L2, regime, beta_shift,
         _close(x, y, scale=gj[5] if i == 3 else None, rtol=rtol)
 
 
+def _autograd_grads(arrs, R, n, dtype):
+    leaves = [torch.tensor(a, dtype=dtype, requires_grad=True) for a in arrs]
+    out = K.pair_scores_plain(*leaves, n, mm_bf16=False)
+    gs = torch.autograd.grad((out * torch.tensor(R, dtype=dtype)).sum(),
+                             leaves, allow_unused=True)
+    return [torch.zeros_like(x) if g is None else g
+            for g, x in zip(gs, leaves)]
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-10),
+                                        (torch.float32, 1e-4)])
+@pytest.mark.parametrize("L2", [0, 1, 2])
+@pytest.mark.parametrize("H", [64, 128])
+@pytest.mark.parametrize("n", [45, 150, 300])
+def test_bwd_plain_matches_autograd_of_plain(n, H, L2, dtype, rtol):
+    """The backward kernel's dataflow in tensor ops (reduction pass, dz
+    where it is read, closed-form da/db from row and column sums) against
+    autograd of the forward's plain version, on ragged tile grids: within
+    1e-10·max|ref| in float64 (the formulas are exact) and 1e-4·max|ref|
+    in float32 with beta + 3, which keeps pre-activations off the kink."""
+    arrs, R = _inputs(n, H, L2, seed=n + H + L2, beta_shift=3.0)
+    want = _autograd_grads(arrs, R, n, dtype)
+    with torch.no_grad():
+        got = K.pair_scores_bwd_plain(
+            *[torch.tensor(a, dtype=dtype) for a in arrs],
+            torch.tensor(R, dtype=dtype), n, mm_bf16=False)
+    assert len(got) == 7
+    for i, (x, y) in enumerate(zip(got, want)):
+        assert x.shape == y.shape and x.dtype == dtype
+        if y.numel() == 0:
+            continue
+        scale = want[5] if i == 3 else y     # dbmid: analytically 0
+        err = float((x - y).abs().max())
+        assert err <= rtol * float(scale.abs().max()) + 1e-12, (i, err)
+
+
+@pytest.mark.parametrize("regime,beta_shift,rtol",
+                         [("off_kink", 3.0, 1e-4), ("generic", 0.0, 1e-2)])
+@pytest.mark.parametrize("n,L2", [(45, 0), (45, 2), (150, 1), (150, 2)])
+def test_bwd_plain_matches_jax_grad_of_ref(n, L2, regime, beta_shift, rtol):
+    H = 64
+    arrs, R = _inputs(n, H, L2, seed=n + L2, beta_shift=beta_shift)
+    gj = jax.grad(lambda *a: jnp.sum(pp.pair_scores_ref(*a, n) * R),
+                  argnums=tuple(range(7)))(*map(jnp.asarray, arrs))
+    gj = [np.asarray(g) for g in gj]
+    with torch.no_grad():
+        got = K.pair_scores_bwd_plain(*[torch.tensor(a) for a in arrs],
+                                      torch.tensor(R), n, mm_bf16=False)
+    for i, (x, y) in enumerate(zip(got, gj)):
+        _close(x.numpy(), y, scale=gj[5] if i == 3 else None, rtol=rtol)
+
+
+def test_bwd_plain_bf16_stays_near_the_fp32_gradient():
+    """With mm_bf16 the dataflow rounds the operands of its two products
+    (x, dz, W) to bf16 and nothing else: every gradient stays within
+    2e-2·max of the fp32 one and differs from it."""
+    n, H, L2 = 150, 64, 2
+    arrs, R = _inputs(n, H, L2, seed=11, beta_shift=3.0)
+    t = [torch.tensor(a) for a in arrs] + [torch.tensor(R)]
+    with torch.no_grad():
+        exact = K.pair_scores_bwd_plain(*t, n, mm_bf16=False)
+        rounded = K.pair_scores_bwd_plain(*t, n, mm_bf16=True)
+    for i, (x, y) in enumerate(zip(rounded, exact)):
+        scale = exact[5] if i == 3 else y
+        assert float((x - y).abs().max()) <= 2e-2 * float(scale.abs().max())
+    assert not torch.equal(rounded[2], exact[2])
+
+
 def test_plain_bf16_rounds_matmul_operands_only():
     """mm_bf16 changes the scores by bf16 rounding of the matmul operands
     only (relative 2^-9 per operand): within 2e-2·max|ref|."""

@@ -38,7 +38,7 @@ def _inputs(n, H, L2, dev):
 
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("n,H,L2", [(45, 64, 0), (150, 128, 1),
-                                    (200, 256, 2)])
+                                    (200, 256, 2), (150, 320, 1)])
 def test_kernels_match_plain_version(card, n, H, L2, bf16):
     rtol, atol = (2e-2, 1e-4) if bf16 else (1e-4, 1e-5)
     args = _inputs(n, H, L2, card)
@@ -93,3 +93,53 @@ def test_bf16_backward_is_as_near_float64_as_the_plain_version(card, seed):
               f"|kernel - f64| {e_k / top:.3e}, |plain - f64| "
               f"{e_p / top:.3e} (of max|f64| {top:.3e})")
         assert e_k <= 2 * e_p + 1e-4 * top, name
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("n,H,L2", [(45, 64, 0), (150, 128, 1),
+                                    (200, 256, 2), (300, 64, 3),
+                                    (150, 320, 1)])
+def test_backward_repeats_bit_for_bit(card, n, H, L2, bf16):
+    """Every sum of the backward has a fixed order (no atomics): two
+    launches on the same inputs give the same bits, and a launch
+    allocates a [P, H] gradient buffer only for two or more hidden
+    layers."""
+    args = _inputs(n, H, L2, card)
+    R = torch.randn(n, n, device=card,
+                    generator=torch.Generator(card).manual_seed(1))
+    _, ws, stat = K.pge_fwd(*args, n, bf16)
+    first = K.pge_bwd(*args, R, ws, stat, n, bf16)
+    grid = K.LAST_BWD["grid"]
+    shapes = K.bwd_scratch_shapes(n, H, L2, grid)
+    assert ("dbuf" in shapes) == (L2 >= 2)
+    assert K.LAST_BWD["scratch_bytes"] == 4 * sum(
+        torch.Size(s).numel() for s in shapes.values())
+    second = K.pge_bwd(*args, R, ws, stat, n, bf16)
+    torch.cuda.synchronize()
+    for name, x, y in zip(GRADS, first, second):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("n,H,L2", [(45, 64, 0), (150, 128, 1),
+                                    (200, 256, 2), (300, 64, 3),
+                                    (150, 320, 1)])
+def test_backward_kernel_matches_its_plain_dataflow(card, n, H, L2, bf16):
+    """The kernel against ``pair_scores_bwd_plain``, the same dataflow in
+    tensor ops (which the CPU tests hold to autograd): the tolerance of
+    the comparison with the plain forward's autograd above."""
+    rtol, atol = (2e-2, 1e-4) if bf16 else (1e-4, 1e-5)
+    args = _inputs(n, H, L2, card)
+    R = torch.randn(n, n, device=card,
+                    generator=torch.Generator(card).manual_seed(7))
+    _, ws, stat = K.pge_fwd(*args, n, bf16)
+    got = K.pge_bwd(*args, R, ws, stat, n, bf16)
+    with torch.no_grad():
+        want = K.pair_scores_bwd_plain(*args, R, n, bf16)
+    for i, (x, y) in enumerate(zip(got, want)):
+        if not y.numel():
+            continue
+        scale = want[5] if i == 3 else y    # dbmid: analytically 0
+        gap, top = float((x - y).abs().max()), float(scale.abs().max())
+        assert gap <= rtol * top + atol, \
+            f"{GRADS[i]}: max|Δ| / max|ref| = {gap / top:.3e}"

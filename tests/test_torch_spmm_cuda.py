@@ -59,6 +59,56 @@ def test_gather_equals_index_select(card, n_src, d, n_idx, ts, staged):
     assert torch.equal(out32, out)
 
 
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("d", [1, 3, 40, 128, 129, 256])
+@pytest.mark.parametrize("n_src,n_idx", [(169343, 6649), (5000, 1336),
+                                         (4096, 300000), (50, 7)])
+def test_direct_gather_is_exact_at_every_width(card, d, dtype, n_src, n_idx):
+    """The direct kernel (what ``gather_rows`` launches): 16-byte pieces
+    when d is a multiple of 4, 4-byte pieces otherwise, one piece a thread;
+    equal to ``index_select`` and bit-equal across runs."""
+    g = torch.Generator(device=card).manual_seed(d + n_idx)
+    x = torch.randn(n_src, d, generator=g, device=card)
+    idx = torch.randint(0, n_src, (n_idx,), generator=g, device=card)
+    idx = idx.to(dtype)
+    out = SG.gather_rows(x, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(out, SG.gather_rows_plain(x, idx.long()))
+    assert torch.equal(out, SG.gather_rows(x, idx))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_direct_gather_repeated_empty_and_unaligned(card, dtype):
+    x = torch.randn(1000, 40, device=card)
+    same = torch.full((5000,), 7, device=card, dtype=dtype)
+    assert torch.equal(SG.gather_rows(x, same), x[7].expand(5000, 40))
+    few = torch.tensor([3, 3, 999, 0, 3], device=card, dtype=dtype)
+    assert torch.equal(SG.gather_rows(x, few), x[few.long()])
+    before = SG.LAUNCHES["smem_gather"]
+    empty = SG.gather_rows(x, torch.zeros(0, device=card, dtype=dtype))
+    assert empty.shape == (0, 40) and SG.LAUNCHES["smem_gather"] == before
+    # a source that is not 16-byte aligned takes the 4-byte pieces
+    base = torch.randn(1000 * 40 + 1, device=card)
+    off = base[1:].view(1000, 40)
+    assert off.data_ptr() % 16 != 0
+    idx = torch.randint(0, 1000, (777,), device=card).to(dtype)
+    assert torch.equal(SG.gather_rows(off, idx), off[idx.long()])
+    with pytest.raises(ValueError, match="empty source"):
+        SG.gather_rows(torch.zeros(0, 4, device=card), few)
+
+
+def test_direct_plan_sizes_the_grid_to_the_pieces():
+    """Host arithmetic of a direct launch (runs anywhere): all indices in
+    one blockIdx.y unless that would hold 2^31 pieces."""
+    assert SG.direct_plan(1336, 128, True) == 1336
+    assert SG.direct_plan(6649, 40, True) == 6649
+    assert SG.direct_plan(32768, 128, True) == 32768
+    assert SG.direct_plan(300000, 129, False) == 300000
+    e_per_y = SG.direct_plan(2 ** 27, 129, False)
+    assert e_per_y * 129 < 2 ** 31 <= (e_per_y + 1) * 129
+    assert SG.direct_plan(0, 4, True) == 1
+
+
 def test_gather_dispatch_counts_launches(card):
     x = torch.randn(100, 8, device=card)
     idx = torch.arange(99, -1, -1, device=card)

@@ -8,11 +8,20 @@ shapes (n = 1354, H = 256) with bf16 matmul operands unless noted:
 1. ``layers``: forward and backward ms of the real kernels for 0, 1 and 2
    hidden layers, in both precisions; the step from 0 to 1 is the cost of
    one hidden layer.
-2. ``phases``: a diagnostic copy of the kernels, built under
-   ``build/phases/``, in which a runtime mask skips one phase at a time
-   (its results are wrong; only its time counts), and two variants whose
-   forward matmul reads a constant A or B operand instead of loading it.
-   The drop in time when a phase is skipped is that phase's cost.
+2. ``phases``: diagnostic builds of the same sources under
+   ``build/phases/`` (their results are wrong; only their time counts).
+   ``csrc/pge_kernels.cuh`` carries the guards: with ``-DPGE_PHASES`` a
+   runtime mask skips one phase at a time: in the forward the hidden
+   matmul, the statistics and the output dot; in the backward the
+   reduction pass, the dW product, the dX product, the layer-0 epilogue
+   of the dX product (``l0_tile_sums``) and ``finish0``, and in every step
+   of the two products the fetch, the convert-and-store or the
+   ``wgmma`` part.  ``-DPGE_CONST=bits`` builds variants
+   that replace an operand's staging arithmetic and loads by a constant:
+   the forward matmul's A or B operand, the backward's dz (the B operand
+   of dW and the A operand of dX; also its loads or its arithmetic alone)
+   and the dW product's X operand.  The drop in time when a phase is
+   skipped, or an operand is constant, is its cost.
 
 Prints one line per timing; the numbers go to ``PERF.md`` with the card's
 name and power limit, which the first line prints.
@@ -39,66 +48,54 @@ N, H = 1354, 256
 CSRC = os.path.join(HERE, "graphslim_tpu_torch", "csrc")
 OUT = os.path.join(HERE, "build", "phases")
 
-# Statements of csrc/pge_kernels.cuh guarded by a bit of the skip mask.
-GUARDS = {
-    "    layer_fwd<BF16>(C, l, smem);": 1,
-    "    stats(C, l);": 2,
-    "        s += C.xval(A.L2, p, c) * A.wlast[c];": 4,
-    "      block_gemm<BF16, true, false>(": 8,
-    "      block_gemm<BF16, false, true>(": 16,
-    "    relu_back(C, G, L2, true, D, pdgamma, pdbeta, pdwlast);": 32,
-    "      relu_back(C, G, l - 1, false, D2, pdgamma, pdbeta, pdwlast);": 32,
-    "      bn_back(C, l, D, pdbmid);": 64,
-    "    bn_back(C, 0, D, pdbmid);": 64,
-}
+# Bits of the runtime skip mask (enum Skip of csrc/pge_kernels.cuh).
 MASKS = {"all phases": 0, "skip hidden matmul": 1,
          "skip layer-1 statistics": 2, "skip output dot": 4,
-         "skip dW matmul": 8, "skip dX matmul": 16, "skip relu_back": 32,
-         "skip bn_back": 64}
-A_LOAD = "      [&](int p, int k) { return C.xval(l - 1, p, k); },"
-B_LOAD = "      [&](int k, int n) { return W[(size_t)k * H + n]; },"
-
-
-def diagnostic_source(variant: str) -> str:
-    src = open(os.path.join(CSRC, "pge_kernels.cuh")).read()
-    for stmt in (A_LOAD, B_LOAD):
-        if stmt not in src:
-            raise SystemExit(f"pge_kernel_phases: not found: {stmt!r}")
-    src = src.replace("namespace pge {",
-                      "namespace pge {\n__device__ int g_skip;", 1)
-    for stmt, bit in GUARDS.items():
-        if stmt not in src:
-            raise SystemExit(f"pge_kernel_phases: not found: {stmt!r}")
-        body = stmt.lstrip()
-        src = src.replace(stmt, stmt[:len(stmt) - len(body)]
-                          + f"if (!(g_skip & {bit})) " + body)
-    if variant == "a_const":
-        src = src.replace(A_LOAD, A_LOAD.replace(
-            "C.xval(l - 1, p, k)", "(float)((p ^ k) & 7)"))
-    elif variant == "b_const":
-        src = src.replace(B_LOAD, B_LOAD.replace(
-            "W[(size_t)k * H + n]", "(float)((k + n) & 7)"))
-    return src
+         "skip dW product": 8, "skip dX product": 16,
+         "skip reduction pass": 32, "skip layer-0 epilogue": 64,
+         "skip finish0": 128, "backward: only reduction pass": 8 + 16 + 128,
+         "backward: only dW product": 16 + 32 + 128,
+         "backward: only dX product": 8 + 32 + 128,
+         "backward: no phase (the wrapper's fills and sums)":
+             8 + 16 + 32 + 128,
+         # parts of a step of gemm_stage4 (both products of the backward)
+         "products: skip fetch": 256,
+         "products: skip convert and store": 512,
+         "products: skip wgmma": 1024,
+         "products: only fetch": 512 + 1024,
+         "products: only convert and store": 256 + 1024,
+         "products: only wgmma": 256 + 512,
+         "products: the bare walk (a barrier a step)": 256 + 512 + 1024,
+         "dW alone: only fetch": 16 + 32 + 128 + 512 + 1024,
+         "dX alone: only fetch": 8 + 32 + 128 + 512 + 1024,
+         "dW alone: the bare walk": 16 + 32 + 128 + 256 + 512 + 1024,
+         "dX alone: the bare walk": 8 + 32 + 128 + 256 + 512 + 1024,
+         "dW alone: skip fetch": 16 + 32 + 128 + 256,
+         "dX alone: skip fetch": 8 + 32 + 128 + 256}
+# Variant -> bits of -DPGE_CONST (enum Const of csrc/pge_kernels.cuh).
+VARIANTS = {"base": 0, "a_const": 1, "b_const": 2, "dz_const": 4 + 8,
+            "dz_noload": 4, "dz_nocvt": 8, "x_const": 16}
 
 
 def build_variant(variant: str) -> str:
     d = os.path.join(OUT, variant)
     os.makedirs(d, exist_ok=True)
-    with open(os.path.join(d, "pge_kernels.cuh"), "w") as f:
-        f.write(diagnostic_source(variant))
-    cu = open(os.path.join(CSRC, "pge.cu")).read() + (
-        '\nextern "C" int set_skip(int v) {\n'
-        "  return (int)cudaMemcpyToSymbol(pge::g_skip, &v, sizeof(int));\n}\n")
-    with open(os.path.join(d, "pge.cu"), "w") as f:
-        f.write(cu)
     so = os.path.join(d, "libpge_phases.so")
     res = subprocess.run(
         [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-         "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", so,
-         os.path.join(d, "pge.cu")], capture_output=True, text=True)
+         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+         "-DPGE_PHASES", f"-DPGE_CONST={VARIANTS[variant]}", "-o", so,
+         os.path.join(CSRC, "pge.cu")], capture_output=True, text=True)
     if res.returncode != 0:
         raise SystemExit(f"pge_kernel_phases: nvcc failed for {variant}:\n"
                          + res.stderr[-3000:])
+    # registers and spills of the bf16 backward kernel
+    lines = res.stderr.splitlines()
+    for i, ln in enumerate(lines):
+        if "pge_bwd_kernelILb1" in ln and "Compiling" in ln:
+            print(f"ptxas {variant} bwd bf16: "
+                  + " | ".join(x.strip() for x in lines[i + 1:i + 3]),
+                  flush=True)
     return so
 
 
@@ -109,10 +106,10 @@ def load(so: str) -> ctypes.CDLL:
     lib.pge_fwd.restype = i32
     lib.pge_bwd.argtypes = [ptr] * 18 + [i32] * 5 + [ptr]
     lib.pge_bwd.restype = i32
-    lib.pge_blocks_per_sm.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    lib.pge_blocks_per_sm.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
     lib.pge_blocks_per_sm.restype = i32
-    lib.set_skip.argtypes = [i32]
-    lib.set_skip.restype = i32
+    lib.pge_set_skip.argtypes = [i32]
+    lib.pge_set_skip.restype = i32
     return lib
 
 
@@ -131,25 +128,36 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
+    # what the card streams: one read of a tensor of the workspace's size
+    x = torch.empty(K._workspace_sizes(N, H, 1)[0], device="cuda").normal_()
+    ms = CS.timed_ms(lambda: x.sum(), 5)
+    print(f"stream: torch.sum over {x.numel() * 4 / 1e9:.3f} GB in "
+          f"{ms:.3f} ms = {x.numel() * 4 / ms / 1e9:.3f} TB/s; clocks "
+          + subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,"
+                            "clocks.max.sm,clocks.max.mem",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True).stdout.strip(), flush=True)
+    del x
     K.build()
     for L2 in (0, 1, 2):
         for bf16 in (False, True):
             f, b = times(L2, bf16)
             print(f"layers L2={L2} bf16={bf16}: fwd {f:.3f} ms, bwd "
                   f"{b:.3f} ms", flush=True)
-    variants = ("base", "a_const", "b_const")
-    with ThreadPoolExecutor(len(variants)) as ex:
-        libs = dict(zip(variants, ex.map(build_variant, variants)))
+    with ThreadPoolExecutor(len(VARIANTS)) as ex:
+        libs = dict(zip(VARIANTS, ex.map(build_variant, VARIANTS)))
     for variant, so in libs.items():
         K._LIB = load(so)
+        K._PER_SM.clear()
         masks = MASKS if variant == "base" else {"all phases": 0}
         for name, mask in masks.items():
-            if K._LIB.set_skip(mask) != 0:
-                raise SystemExit("pge_kernel_phases: set_skip failed")
+            if K._LIB.pge_set_skip(mask) != 0:
+                raise SystemExit("pge_kernel_phases: pge_set_skip failed")
             f, b = times(1, True)
             print(f"phases {variant} {name}: fwd {f:.3f} ms, bwd "
                   f"{b:.3f} ms", flush=True)
     K._LIB = None
+    K._PER_SM.clear()
 
 
 if __name__ == "__main__":
