@@ -8,7 +8,10 @@ line of output each, any failed check raises (non-zero exit):
    each source under ``graphslim_tpu_torch/csrc``, all started together);
 2. the PGE forward kernel against its plain version on the card, at the
    slice's shapes (n = 1354, H = 256, L2 = 1) and smaller ragged ones,
-   in fp32 and with bf16 matmul operands;
+   in fp32 and with bf16 matmul operands; at the slice's shape both
+   launch kinds (keeping the workspace the backward reads, and without
+   it, as under no_grad), equal bit for bit, each timed with the bytes of
+   workspace it allocates;
 3. the PGE backward kernel against autograd of the plain version, on all
    seven gradients, and in both precisions against a float64 plain
    version; at the slice's shape its time beside the bytes of
@@ -28,14 +31,16 @@ line of output each, any failed check raises (non-zero exit):
    largest pool out of a 129-wide matrix, int32 and int64 indices);
 7. the blocked SpMM kernel against its plain version and a float64
    product: (a) n = 500, d = 16, td = ts = 128; (b) the arxiv twin's
-   normalized adjacency at d = 128, 256, 40 and 129, forward and backward,
-   timed beside its bound and ``torch.sparse.mm``; (c) ragged graphs with
+   normalized adjacency at d = 128, 256, 40, 129, 64 and 192, forward and
+   backward, timed beside its bound and ``torch.sparse.mm``; (c) ragged
+   graphs with
    empty rows and a row heavier than a tile; each result must repeat bit
    for bit;
 8. the coreset path at full width through ``train_all.run`` on
    ``ogbn-arxiv`` (r = 0.01, hidden 256, 300 epochs): ``kcenter`` with
    GCN, ``herding`` with ``agg`` and SGC, ``cent_p`` with GCN, 3 seeds
-   each, with the kernels' launch counts, a check of the GCN that KCenter
+   each, with the kernels' launch counts (the SpMM's by width), a check of
+   the GCN that KCenter
    trains (validation ≥ 0.60; logits through the kernel and through its
    plain version agree) and a torch.profiler breakdown of one epoch; then
    the blocked SpMM against its plain version, a float64 product and
@@ -306,6 +311,13 @@ def compare_kernels(K, stats: dict) -> None:
             with torch.no_grad():
                 ref = K.pair_scores_plain(*args, n, bf16)
             e_f = check_close(f"fwd {tag}", out, ref, TOL_FWD[bf16], bad)
+            if main_shape:   # the launch kind without the workspace
+                bare, _, _ = K.pge_fwd(*args, n, bf16, keep=False)
+                torch.cuda.synchronize()
+                check_close(f"fwd no-grad {tag}", bare, ref, TOL_FWD[bf16],
+                            bad)
+                if not torch.equal(bare, out):
+                    bad.append(f"fwd {tag}: the two launch kinds differ")
             grads = K.pge_bwd(*args, R, ws, stat, n, bf16)
             torch.cuda.synchronize()
             gref = plain_grads(K, args, R, n, bf16)
@@ -337,6 +349,14 @@ def compare_kernels(K, stats: dict) -> None:
             if main_shape:
                 b = pge_bounds(n, H, L2, bf16)
                 fwd_ms = timed_ms(lambda: K.pge_fwd(*args, n, bf16), 10)
+                ws_bytes = K.LAST_FWD["workspace_bytes"]
+                bare_ms = timed_ms(
+                    lambda: K.pge_fwd(*args, n, bf16, keep=False), 10)
+                bare_bytes = K.LAST_FWD["workspace_bytes"]
+                # the kept workspace's z writes alone (every padded pair
+                # of every tile), at the HBM rate
+                ws_bound = 1e3 * 4 * K._workspace_sizes(n, H, L2)[0] / \
+                    PEAK_BYTES
                 bwd_ms = timed_ms(
                     lambda: K.pge_bwd(*args, R, ws, stat, n, bf16), 5)
                 with torch.no_grad():
@@ -344,7 +364,11 @@ def compare_kernels(K, stats: dict) -> None:
                         lambda: K.pair_scores_plain(*args, n, bf16), 3)
                 plain_bwd = plain_vjp_ms(K, args, R, n, bf16)
                 lib = K.build()
-                line += (f"; fwd {fwd_ms:.3f} ms (plain {plain_fwd:.3f}, "
+                line += (f"; fwd keeping the workspace {fwd_ms:.3f} ms "
+                         f"({ws_bytes} bytes of workspace; its z writes "
+                         f"alone {ws_bound:.3f} ms at the HBM rate), without "
+                         f"{bare_ms:.3f} ms ({bare_bytes} bytes), equal bit "
+                         f"for bit (plain {plain_fwd:.3f}, "
                          f"bound {b['fwd']:.3f} by {b['fwd_by']}); bwd "
                          f"{bwd_ms:.3f} ms (plain vjp {plain_bwd:.3f}, "
                          f"bound {b['bwd']:.3f} by {b['bwd_by']}; "
@@ -357,7 +381,8 @@ def compare_kernels(K, stats: dict) -> None:
                 if bf16:   # the main path's precision
                     stats["pge_fwd"] = dict(
                         max_abs_err=e_f, ms=fwd_ms, plain_ms=plain_fwd,
-                        bound_ms=b["fwd"], bound_by=b["fwd_by"])
+                        bound_ms=b["fwd"], bound_by=b["fwd_by"],
+                        ms_nograd=bare_ms, workspace_bound_ms=ws_bound)
                     stats["pge_bwd"] = dict(
                         max_abs_err=e_b, ms=bwd_ms, plain_ms=plain_bwd,
                         bound_ms=b["bwd"], bound_by=b["bwd_by"])
@@ -463,9 +488,13 @@ def run_gcond(K, ds, save_path: str) -> tuple:
     extra = inference.n - inner.n   # checkpoint + final inference_adj
     if launches["pge_bwd"] != outer:
         fail(f"pge_bwd launches {launches['pge_bwd']} != {outer}")
-    if launches["pge_fwd"] != 2 * outer + extra:
-        fail(f"pge_fwd launches {launches['pge_fwd']} != 2·{outer} + "
-             f"{extra}")
+    # syn_adj_norm feeds the backward; inner_adj and inference_adj do not
+    if (launches["pge_fwd_ws"], launches["pge_fwd_nows"]) != \
+            (outer, outer + extra):
+        fail(f"pge_fwd launches {launches['pge_fwd_ws']} keeping the "
+             f"workspace, {launches['pge_fwd_nows']} without != {outer}, "
+             f"{outer} + {extra}")
+    launches["pge_fwd"] = launches["pge_fwd_ws"] + launches["pge_fwd_nows"]
     feat = red.feat
     if feat.shape != (1354, 128) or not torch.isfinite(feat).all() or \
             not torch.isfinite(red.adj).all():
@@ -475,7 +504,8 @@ def run_gcond(K, ds, save_path: str) -> tuple:
         f"{sps:.3f} outer steps/s (timed epoch 1; epochs "
         f"{[round(s, 3) for s in epoch_s]} s, reduce() {wall:.1f} s), "
         f"epoch losses {[round(x, 5) for x in losses]}, launches "
-        f"{launches} (fwd = 2·{outer} + {extra} inference_adj)")
+        f"{launches} (fwd = {outer} keeping the workspace + {outer} "
+        f"inner_adj + {extra} inference_adj without)")
     kern = profiled["kernels"]
     busy = sum(kern.values())
     if not busy > 0:
@@ -720,9 +750,9 @@ def compare_spmm_arxiv(SB, ds, stats: dict) -> None:
     csr = adj.to_csr()
     bad: list = []
     gen = torch.Generator(device="cuda").manual_seed(2)
-    # features, hidden, classes, and [X | 1] of the evaluator's hoist (not
-    # a multiple of 4: the kernel's scalar branch, two column slabs)
-    for d in (128, 256, 40, 129):
+    # features, hidden, classes, [X | 1] of the evaluator's hoist (not a
+    # multiple of 4: floats, not float4s), and two widths between
+    for d in (128, 256, 40, 129, 64, 192):
         x = torch.randn(n, d, generator=gen, device="cuda")
         g = torch.randn(n, d, generator=gen, device="cuda")
         err = check_spmm(SB, f"(b) arxiv d={d} fwd", adj, layout, x, bad)
@@ -744,7 +774,11 @@ def compare_spmm_arxiv(SB, ds, stats: dict) -> None:
         bound = spmm_bound_ms(nnz, n, n, d)
         moved = (nnz * (8 + d * 4) + layout.bounds.numel() * 4
                  + n * d * 4) / 1e9
-        log(f"spmm (b) arxiv d={d}: fwd max|Δ| {err:.2e}, bwd max|Δ| "
+        plan = SB.launch_plan(d, d % 4 == 0)
+        log(f"spmm (b) arxiv d={d} ({plan['n_slabs']} walk(s) of the "
+            f"entries, {plan['lpr']} lanes a row group x {plan['nv']} "
+            f"items, {plan['busy']} of 32 lanes busy): fwd max|Δ| "
+            f"{err:.2e}, bwd max|Δ| "
             f"{err_b:.2e}; kernel {ms:.4f} ms (transposed layout "
             f"{ms_b:.4f} ms; plain {plain:.3f} ms; torch.sparse.mm "
             f"{lib:.4f} ms; bound {bound:.4f} ms by bytes); the kernel "
@@ -864,7 +898,11 @@ def run_coresets(SB, SG, G) -> tuple:
                 run_eval=3, eval_model=model, save_path=tmp,
                 device="cuda"), explicit={"run_eval", "eval_epochs"})
             before = dict(SB.LAUNCHES, **SG.LAUNCHES)
+            by_width = dict(SB.LAUNCHES_BY_WIDTH)
             mean, std = TA.run(args)
+            widths = {d: c - by_width.get(d, 0)
+                      for d, c in sorted(SB.LAUNCHES_BY_WIDTH.items())
+                      if c > by_width.get(d, 0)}
             agent = seen["agent"]
             n_sel = int(agent.labels_syn.shape[0])
             if not (math.isfinite(mean) and math.isfinite(std)):
@@ -887,7 +925,7 @@ def run_coresets(SB, SG, G) -> tuple:
                 f"300 epochs {seen['evaluate'][0]:.2f} s "
                 f"({seen['evaluate'][1]} SpMM "
                 f"launches), gather launches {lb}, accuracy {mean:.4f} ± "
-                f"{std:.4f}")
+                f"{std:.4f}; SpMM launches by width (d: count) {widths}")
             if method == "kcenter":
                 kcenter = (agent, seen["data"], args, seen["reduce"][1])
             if model == "GCN":    # trained on the selected nodes' subgraph
@@ -1050,6 +1088,8 @@ def main() -> None:
 
     src = "graphslim_tpu_torch/csrc/"
     kernels = [
+        # ms: the launch kind that keeps the workspace (syn_adj_norm);
+        # ms_nograd: the kind without it (inner_adj, inference_adj)
         dict(name="pge_fwd", route="cuda", source=src + "pge_kernels.cuh",
              replaces="graphslim_tpu/kernels/pallas_pge.py:74",
              launches=launches["pge_fwd"], library_ms=None,

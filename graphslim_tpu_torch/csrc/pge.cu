@@ -37,20 +37,63 @@ pge::Params make_params(const float* a, const float* b, const float* wmid,
 
 }  // namespace
 
+template <int NBG>
+static cudaError_t launch_fwd(const pge::Params& A, float* out, int keep,
+                              int grid, cudaStream_t stream) {
+  const int smem = pge::fwd_smem_bytes(A.H);
+  cudaError_t err = cudaFuncSetAttribute(
+      pge::pge_fwd_kernel<NBG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  pge::pge_fwd_kernel<NBG><<<grid, pge::FT, smem, stream>>>(A, out, keep);
+  return cudaGetLastError();
+}
+
+// The tensor-core forward's kernel at width H (its column-group width).
+static const void* fwd_kernel(int H) {
+  switch (pge::fwd_nbg(H)) {
+    case 1: return (const void*)pge::pge_fwd_kernel<1>;
+    case 2: return (const void*)pge::pge_fwd_kernel<2>;
+    case 3: return (const void*)pge::pge_fwd_kernel<3>;
+    default: return (const void*)pge::pge_fwd_kernel<4>;
+  }
+}
+
+// Widths the tensor-core forward takes: multiples of 64 whose operands fit
+// a block's shared memory (up to 320).
+static bool fwd_width_ok(int H) {
+  return H >= 64 && H % 64 == 0 &&
+         pge::fwd_smem_bytes(H) <= pge::MAX_SMEM_BLOCK;
+}
+
+// keep: ws and stat are per tile (the backward reads them); else the
+// tensor-core version takes (L2 - 1) x P x H floats a block in ws and no
+// statistics.  The fp32 version writes the per-tile ones in every launch.
 extern "C" int pge_fwd(const float* a, const float* b, const float* wmid,
                        const float* bmid, const float* gamma,
                        const float* beta, const float* wlast, float* out,
                        float* ws, float* stat, int n, int H, int L2,
-                       int grid, int bf16, void* stream) {
+                       int grid, int bf16, int keep, void* stream) {
   pge::Params A = make_params(a, b, wmid, bmid, gamma, beta, wlast, ws,
                               stat, n, H, L2);
-  if (bf16)
-    pge::pge_fwd_kernel<true><<<grid, pge::NT, 0, (cudaStream_t)stream>>>(
-        A, out);
-  else
-    pge::pge_fwd_kernel<false><<<grid, pge::NT, 0, (cudaStream_t)stream>>>(
-        A, out);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (!bf16) {
+    pge::pge_fwd_simt_kernel<<<grid, pge::NT, 0, s>>>(A, out);
+    return (int)cudaGetLastError();
+  }
+  if (!fwd_width_ok(H)) return (int)cudaErrorInvalidValue;
+  switch (pge::fwd_nbg(H)) {
+    case 1: return (int)launch_fwd<1>(A, out, keep, grid, s);
+    case 2: return (int)launch_fwd<2>(A, out, keep, grid, s);
+    case 3: return (int)launch_fwd<3>(A, out, keep, grid, s);
+    default: return (int)launch_fwd<4>(A, out, keep, grid, s);
+  }
+}
+
+// Bytes of dynamic shared memory of a tensor-core forward block at width
+// H, or -1 for a width it does not take.
+extern "C" int pge_fwd_smem_bytes(int H) {
+  return fwd_width_ok(H) ? pge::fwd_smem_bytes(H) : -1;
 }
 
 // Opts the backward kernel into its dynamic shared memory (above 48 KB)
@@ -120,10 +163,17 @@ extern "C" int pge_blocks_per_sm(int bwd, int bf16, int H, int* out) {
         out, k, bf16 ? pge::BwdThreads<true>::N : pge::BwdThreads<false>::N,
         smem);
   }
-  const void* k = bf16 ? (const void*)pge::pge_fwd_kernel<true>
-                       : (const void*)pge::pge_fwd_kernel<false>;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, k, pge::NT,
-                                                           0);
+  if (!bf16)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, pge::pge_fwd_simt_kernel, pge::NT, 0);
+  if (!fwd_width_ok(H)) return (int)cudaErrorInvalidValue;
+  const int smem = pge::fwd_smem_bytes(H);
+  const void* k = fwd_kernel(H);
+  cudaError_t err = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, k, pge::FT,
+                                                           smem);
 }
 
 // Bytes of dynamic shared memory of a backward block at width H.

@@ -15,19 +15,19 @@
 //
 // Design.  A tile's activations (2048 pairs x H channels, 2 MB at H = 256)
 // do not fit in shared memory, and BatchNorm needs a whole layer's
-// statistics before the layer can be applied.  So every tile has a
-// workspace in device memory: the pre-BN activations of each hidden
-// matmul layer and the BatchNorm statistics.  A layer is one matmul pass
-// that writes its pre-BN output to the workspace, then a statistics pass;
-// the next layer's matmul applies BN + ReLU while it loads its input.
-// Layer-0 statistics factor exactly over the tile's valid rows and
-// columns (mean = mean_i a + mean_j b, var = var_i a + var_j b), so h0 is
-// never stored.  The backward reads the forward's workspace instead of
-// recomputing it (the TPU kernel recomputed; 1.9 GB at the slice's
-// shapes is cheap on an 80 GB card).  A tile's gradient never goes
-// through device memory: BatchNorm and ReLU backward are applied while
-// the operands of the two products are staged, and layer 0 keeps only row
-// and column sums (see "Backward" below).
+// statistics before the layer can be applied.  The tensor-core forward
+// takes a layer's statistics in the epilogue of its product and runs the
+// top layer's product a second time for the output dot (see "Forward,
+// tensor-core version" below); a launch whose result feeds the backward
+// also writes every hidden layer's pre-BN activations and the statistics
+// to a per-tile workspace in device memory, which the backward reads
+// instead of recomputing them (the TPU kernel recomputed; 1.9 GB at the
+// slice's shapes is cheap on an 80 GB card).  Layer-0 statistics factor
+// exactly over the tile's valid rows and columns (mean = mean_i a +
+// mean_j b, var = var_i a + var_j b), so h0 is never stored.  A tile's
+// gradient never goes through device memory: BatchNorm and ReLU backward
+// are applied while the operands of the two products are staged, and
+// layer 0 keeps only row and column sums (see "Backward" below).
 //
 // Blocks are persistent (a grid-stride loop over tiles) and run in no
 // order, so nothing is accumulated across blocks: the backward writes
@@ -36,14 +36,15 @@
 //
 // Matmuls: with mm_bf16 set (the main path), every operand is rounded to
 // bf16 (round to nearest even) as it is staged in shared memory and the
-// product runs on the tensor cores with fp32 accumulators (mma.sync
-// m16n8k16 in the forward, wgmma m64n64k16 in the backward) -- the TPU
-// kernel's MM_DTYPE numerics.  Without it they run on the CUDA
-// cores in full fp32 (128 x 64 output tile, 8 x 4 outputs per thread).
-// The forward stages element by element (gemm_mma, gemm_simt); the
-// backward four elements at a time: into swizzled tiles that wgmma reads,
-// with the workspace operand in a cp.async ring (gemm_stage4), or in fp32
-// (gemm_simt4).
+// product runs on the tensor cores with fp32 accumulators (wgmma from
+// 128-byte-swizzled tiles: m64n256k16 in the forward at H = 256, m64n64k16
+// in the backward) -- the TPU kernel's MM_DTYPE
+// numerics.  Without it they run on the CUDA cores in full fp32 (128 x 64
+// output tile, 8 x 4 outputs per thread), through the workspace in every
+// launch.  The forward builds its operand four elements at a time with
+// the whole width H as one output chunk (fwd_product); the backward
+// four elements at a time into 128 x 128 output tiles, with the workspace
+// operand in a cp.async ring (gemm_stage4), or in fp32 (gemm_simt4).
 //
 // Bound on the H100 at the slice's shapes (n = 1354, H = 256, L2 = 1):
 // the forward's hidden matmul is 2 * 1354^2 * 256 * 256 = 240 GFLOP of
@@ -57,7 +58,9 @@
 // output tiles restage the operand), and a step of a product is short
 // against the latency of device memory, so the loads have to be kept
 // several steps ahead without registers.  PERF.md holds the measured
-// times of both kernels and of their phases.
+// times of both kernels and of their phases.  The launch of the forward
+// that keeps the workspace is bound below by its 1.96 GB of writes:
+// 0.585 ms at 3.35 TB/s.
 //
 // tools/pge_kernel_phases.py times diagnostic builds of this file (wrong
 // results, only the time counts).  With -DPGE_PHASES a phase is skipped
@@ -80,16 +83,18 @@ __device__ int g_skip;
 #define PGE_CONST 0
 #endif
 
-// Bits of g_skip (a phase, or a part of every step of gemm_stage4) ...
+// Bits of g_skip (a phase, or a part of every step of gemm_stage4; in the
+// forward: its wgmma, its statistics epilogue, its second product for the
+// output dot, its store of z) ...
 enum Skip {
   SKIP_FWD_MATMUL = 1, SKIP_FWD_STATS = 2, SKIP_FWD_DOT = 4,
   SKIP_DW = 8, SKIP_DX = 16, SKIP_REDUCE = 32, SKIP_L0_SUMS = 64,
   SKIP_FINISH0 = 128, SKIP_STEP_FETCH = 256, SKIP_STEP_CONVERT = 512,
-  SKIP_STEP_MMA = 1024
+  SKIP_STEP_MMA = 1024, SKIP_FWD_STORE = 2048
 };
-// ... and of PGE_CONST: the forward matmul's A or B operand; the
-// backward's dz without its loads or without its arithmetic; the dW
-// product's X operand.
+// ... and of PGE_CONST: the forward matmul's A operand (X) or its B
+// operand (W); the backward's dz without its loads or without its
+// arithmetic; the dW product's X operand.
 enum Const {
   CONST_FWD_A = 1, CONST_FWD_B = 2, CONST_DZ_NOLOAD = 4, CONST_DZ_NOCVT = 8,
   CONST_X = 16
@@ -105,16 +110,8 @@ constexpr int BN = 64;            // fp32 matmul output tile cols
 constexpr int BK = 16;            // fp32 matmul depth step
 constexpr int BMP = BM + 4;       // padded shared-memory row lengths
 constexpr int BNP = BN + 4;
-constexpr int MBM = 128;          // bf16 (tensor-core) output tile rows
-constexpr int MBN = 128;          // bf16 output tile cols
-constexpr int WARPS_M = MBM / 32; // warp grid over the output tile
-constexpr int WARPS_N = NT / 32 / WARPS_M;
-constexpr int MK = 32;            // bf16 depth step
-constexpr int MKP = MK + 8;       // padded bf16 row length
-constexpr int SMEM_BYTES =        // shared by the two matmul versions
-    (BK * BMP + BK * BNP) * 4 > (MBM + MBN) * MKP * 2
-        ? (BK * BMP + BK * BNP) * 4
-        : (MBM + MBN) * MKP * 2;
+constexpr int MBM = 128;          // backward (wgmma) output tile rows
+constexpr int MBN = 128;          // backward output tile cols
 constexpr float EPS = 1e-5f;
 
 struct Params {
@@ -214,10 +211,9 @@ struct Ctx {
 // thread-to-element map whose global reads are coalesced for the source's
 // contiguous axis.  epi(m, n, v0, v1) receives 2 consecutive columns of a
 // row; done(m0, n0) runs on every thread once an output tile's epilogue
-// is through (it may synchronize).  The output tile is 128 rows by MBN
-// (bf16) or BN (fp32) columns.  N must be a multiple of BN (64) and K of
-// MK (32); rows m >= M are skipped.  With bf16 set the product runs on
-// the tensor cores (gemm_mma), else on the CUDA cores in fp32 (gemm_simt).
+// is through (it may synchronize).  The output tile is 128 rows by BN
+// columns.  N must be a multiple of BN (64) and K of BK (16); rows m >= M
+// are skipped.
 // ---------------------------------------------------------------------------
 // One depth step of the fp32 product from the staged tiles As[k][m],
 // Bs[k][n]: thread (tr, tc) owns rows tr * 8 .. + 7, columns tc * 4 .. + 3.
@@ -372,141 +368,11 @@ __device__ void gemm_simt4(int M, int N, int K, FA ldA, FB ldB, FE epi,
   }
 }
 
-// D[16 x 8] += A[16 x 16] B[16 x 8], bf16 operands, fp32 accumulators.
-__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Element q of this thread's share of a ROWS x MK operand tile: row r (m
-// of A, n of B) and depth k.  RCONTIG: the source is contiguous along r
-// (a warp reads 32 consecutive rows), else along k (MK consecutive k).
-template <bool RCONTIG, int ROWS>
-__device__ __forceinline__ void tile_elem(int q, int& r, int& k) {
-  const int tid = threadIdx.x;
-  if (RCONTIG) {
-    r = tid % ROWS;
-    k = tid / ROWS + (NT / ROWS) * q;
-  } else {
-    k = tid % MK;
-    r = tid / MK + (NT / MK) * q;
-  }
-}
-
-// Tensor-core version: operands rounded to bf16 (round to nearest even)
-// into shared memory, k-contiguous rows (As[m][k], Bs[n][k]) padded to
-// MKP so the fragment reads hit distinct banks; mma.sync m16n8k16.  Eight
-// warps as WARPS_M x WARPS_N, each computing 32 x (MBN / WARPS_N) of the
-// MBM x MBN output tile.  The (output tile, depth step) sequence is one
-// loop, and the next step's operands are read into registers while this
-// step's products run.
-template <bool A_MCONTIG, bool B_KCONTIG, class FA, class FB, class FE,
-          class FD>
-__device__ void gemm_mma(int M, int N, int K, FA ldA, FB ldB, FE epi,
-                         FD done, unsigned short* As, unsigned short* Bs) {
-  constexpr int EA = MBM * MK / NT, EB = MBN * MK / NT;  // staged/thread
-  constexpr int NJ = MBN / WARPS_N / 8;   // n8 tiles of a warp
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int wm = (warp / WARPS_N) * 32;
-  const int wn = (warp % WARPS_N) * (MBN / WARPS_N);
-  const int nk = K / MK, nn = (N + MBN - 1) / MBN;
-  const int steps = (M + MBM - 1) / MBM * nn * nk;
-  float ra[EA], rb[EB];
-  auto fetch = [&](int s) {
-    const int t = s / nk, k0 = (s % nk) * MK;
-    const int m0 = (t / nn) * MBM, n0 = (t % nn) * MBN;
-#pragma unroll
-    for (int q = 0; q < EA; ++q) {
-      int r, k;
-      tile_elem<A_MCONTIG, MBM>(q, r, k);
-      ra[q] = (m0 + r < M) ? ldA(m0 + r, k0 + k) : 0.f;
-    }
-#pragma unroll
-    for (int q = 0; q < EB; ++q) {
-      int r, k;
-      tile_elem<!B_KCONTIG, MBN>(q, r, k);
-      rb[q] = (n0 + r < N) ? ldB(k0 + k, n0 + r) : 0.f;
-    }
-  };
-  auto bf = [](float v) {
-    return (unsigned short)(__float_as_uint(round_bf16(v)) >> 16);
-  };
-  float acc[2][NJ][4];
-  fetch(0);
-  for (int s = 0; s < steps; ++s) {
-    if (s % nk == 0) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
-    }
-#pragma unroll
-    for (int q = 0; q < EA; ++q) {
-      int r, k;
-      tile_elem<A_MCONTIG, MBM>(q, r, k);
-      As[r * MKP + k] = bf(ra[q]);
-    }
-#pragma unroll
-    for (int q = 0; q < EB; ++q) {
-      int r, k;
-      tile_elem<!B_KCONTIG, MBN>(q, r, k);
-      Bs[r * MKP + k] = bf(rb[q]);
-    }
-    __syncthreads();
-    if (s + 1 < steps) fetch(s + 1);
-#pragma unroll
-    for (int kk = 0; kk < MK; kk += 16) {
-      unsigned af[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const unsigned short* ap =
-            &As[(wm + i * 16 + gid) * MKP + kk + tig * 2];
-        af[i][0] = *reinterpret_cast<const unsigned*>(ap);
-        af[i][1] = *reinterpret_cast<const unsigned*>(ap + 8 * MKP);
-        af[i][2] = *reinterpret_cast<const unsigned*>(ap + 8);
-        af[i][3] = *reinterpret_cast<const unsigned*>(ap + 8 * MKP + 8);
-      }
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const unsigned short* bp =
-            &Bs[(wn + j * 8 + gid) * MKP + kk + tig * 2];
-        const unsigned b0 = *reinterpret_cast<const unsigned*>(bp);
-        const unsigned b1 = *reinterpret_cast<const unsigned*>(bp + 8);
-        mma_bf16(acc[0][j], af[0], b0, b1);
-        mma_bf16(acc[1][j], af[1], b0, b1);
-      }
-    }
-    __syncthreads();
-    if (s % nk == nk - 1) {
-      const int t = s / nk;
-      const int m0 = (t / nn) * MBM, n0 = (t % nn) * MBN;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int m = m0 + wm + i * 16 + gid;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const int n = n0 + wn + j * 8 + tig * 2;
-          if (n >= N) continue;
-          if (m < M) epi(m, n, acc[i][j][0], acc[i][j][1]);
-          if (m + 8 < M) epi(m + 8, n, acc[i][j][2], acc[i][j][3]);
-        }
-      }
-      done(m0, n0);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // Tensor-core matmul of the backward, staged four elements at a time.
 //
-// gemm_mma above fetches one element per call; with an operand that is
+// Fetching one element per call (as gemm_simt does) with an operand that is
 // computed while it is staged (dz needs a load of z, five per-channel
 // constants, the pair's mask and its upstream gradient) the per-element
 // index arithmetic and 4-byte accesses cost more than the products.  Here
@@ -527,7 +393,7 @@ __device__ void gemm_mma(int M, int N, int K, FA ldA, FB ldB, FE epi,
 // from the workspace through a ring in shared memory (gemm_stage4).  The
 // walk over (output tile, depth step) keeps its coordinates by increment:
 // a division per step and thread costs as much as the products.  Rows
-// beyond M or N are staged as zeros.  epi and done as for gemm_mma.  The
+// beyond M or N are staged as zeros.  epi and done as for gemm_simt.  The
 // block has NT4 = 512 threads, 4 warpgroups as 2 x 2 over the MBM x MBN
 // output tile: 32 accumulators a thread, which with the staged operand's
 // registers fits 128 registers, and one block an SM leaves L1 its share of
@@ -605,6 +471,149 @@ __device__ __forceinline__ void wgmma_m64n64k16(float* d,
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// wgmma D[64 x N] (+)= A[64 x 16] B[16 x N], both operands K-major in
+// the 128-byte swizzle (as wgmma_m64n64k16 with TA = TB = 0): N / 2
+// accumulators a thread, n8 block j at d[4 j .. 4 j + 3].  One instruction
+// covers the forward's whole output chunk, so A is read from shared
+// memory once per k16 step, not once per 64 columns.
+template <int N>
+__device__ __forceinline__ void wgmma_kmajor(float* d, unsigned long long da,
+                                             unsigned long long db,
+                                             int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_kmajor<64>(float* d,
+                                               unsigned long long da,
+                                               unsigned long long db,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,"
+      "%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_kmajor<128>(float* d,
+                                               unsigned long long da,
+                                               unsigned long long db,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,"
+      "%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,"
+      "%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,"
+      "%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_kmajor<192>(float* d,
+                                               unsigned long long da,
+                                               unsigned long long db,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,"
+      "%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,"
+      "%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,"
+      "%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,%65,%66,%67,%68,%69,"
+      "%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,%80,%81,%82,%83,%84,%85,%86,"
+      "%87,%88,%89,%90,%91,%92,%93,%94,%95}, "
+      "%96, %97, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]),
+        "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]),
+        "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_kmajor<256>(float* d,
+                                               unsigned long long da,
+                                               unsigned long long db,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,"
+      "%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,"
+      "%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,"
+      "%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,%65,%66,%67,%68,%69,"
+      "%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,%80,%81,%82,%83,%84,%85,%86,"
+      "%87,%88,%89,%90,%91,%92,%93,%94,%95,%96,%97,%98,%99,%100,%101,%102,"
+      "%103,%104,%105,%106,%107,%108,%109,%110,%111,%112,%113,%114,%115,%116,"
+      "%117,%118,%119,%120,%121,%122,%123,%124,%125,%126,%127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]),
+        "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]),
+        "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]),
+        "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]),
+        "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]),
+        "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
+        "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // Orders this thread's register and shared-memory writes before the
@@ -788,24 +797,16 @@ __device__ void gemm_stage4(int M, int N, int K, IS copy, CV cv, LS ldS,
   cp_async_wait<0>();
 }
 
-template <bool BF16, bool A_MCONTIG, bool B_KCONTIG, class FA, class FB,
-          class FE, class FD>
-__device__ void block_gemm(int M, int N, int K, FA ldA, FB ldB, FE epi,
-                           FD done, unsigned char* smem) {
-  if constexpr (BF16) {
-    unsigned short* As = reinterpret_cast<unsigned short*>(smem);
-    gemm_mma<A_MCONTIG, B_KCONTIG>(M, N, K, ldA, ldB, epi, done, As,
-                                   As + MBM * MKP);
-  } else {
-    float* As = reinterpret_cast<float*>(smem);
-    gemm_simt<A_MCONTIG, B_KCONTIG>(M, N, K, ldA, ldB, epi, done, As,
-                                    As + BK * BMP);
-  }
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
+
 // ---------------------------------------------------------------------------
-// Passes over one tile (thread per channel unless noted).  Every thread
-// reaches every __syncthreads(); callers sync between passes.
+// Forward, fp32 version (mm_bf16 off): a pass per phase over the tile's
+// workspace, thread per channel unless noted.  Every thread reaches every
+// __syncthreads(); callers sync between passes.
 // ---------------------------------------------------------------------------
 
 // Layer-0 statistics from the factorization over valid rows and columns.
@@ -860,66 +861,532 @@ __device__ void stats(const Ctx& C, int l) {
 }
 
 // Hidden layer l >= 1: Z_l = X_{l-1} @ wmid[l-1] + bmid[l-1].
-template <bool BF16>
-__device__ void layer_fwd(const Ctx& C, int l, unsigned char* smem) {
+__device__ void layer_fwd_simt(const Ctx& C, int l, float* smem) {
   const int H = C.A.H;
   const float* W = C.A.wmid + (size_t)(l - 1) * H * H;
   const float* bias = C.A.bmid + (size_t)(l - 1) * H;
   float* z = C.zbuf(l);
-  block_gemm<BF16, false, false>(
-      P, H, H,
-      [&](int p, int k) {
-        if (PGE_CONST & CONST_FWD_A) return (float)((p ^ k) & 7);
-        return C.xval(l - 1, p, k);
-      },
-      [&](int k, int n) {
-        if (PGE_CONST & CONST_FWD_B) return (float)((k + n) & 7);
-        return W[(size_t)k * H + n];
-      },
+  gemm_simt<false, false>(
+      P, H, H, [&](int p, int k) { return C.xval(l - 1, p, k); },
+      [&](int k, int n) { return W[(size_t)k * H + n]; },
       [&](int p, int n, float v0, float v1) {
         *reinterpret_cast<float2*>(&z[(size_t)p * H + n]) =
             make_float2(v0 + bias[n], v1 + bias[n + 1]);
       },
-      [](int, int) {}, smem);
+      [](int, int) {}, smem, smem + BK * BMP);
 }
 
-// Forward of one tile up to the top layer's statistics, into the tile's
-// workspace, which the backward reads.
-template <bool BF16>
-__device__ void tile_forward(const Ctx& C, unsigned char* smem) {
-  stats0(C);
-  __syncthreads();
-  for (int l = 1; l <= C.A.L2; ++l) {
-    if (!PGE_SKIP(SKIP_FWD_MATMUL)) layer_fwd<BF16>(C, l, smem);
-    __syncthreads();
-    if (!PGE_SKIP(SKIP_FWD_STATS)) stats(C, l);
-    __syncthreads();
-  }
-}
-
-template <bool BF16>
+// Every launch writes the tile's workspace and statistics.
 __global__ void __launch_bounds__(NT, 2)
-pge_fwd_kernel(Params A, float* out) {
-  __shared__ __align__(16) unsigned char smem[SMEM_BYTES];
+pge_fwd_simt_kernel(Params A, float* out) {
+  __shared__ __align__(16) float smem[BK * BMP + BK * BNP];
   Ctx C(A);
   for (int t = blockIdx.x; t < A.ntiles; t += gridDim.x) {
     C.at(t);
-    tile_forward<BF16>(C, smem);
+    stats0(C);
+    __syncthreads();
+    for (int l = 1; l <= A.L2; ++l) {
+      layer_fwd_simt(C, l, smem);
+      __syncthreads();
+      stats(C, l);
+      __syncthreads();
+    }
     // out[i, j] = relu(BN(z_top)) . wlast: a warp per pair, its lanes
-    // over the channels (coalesced reads), then a shuffle reduction
+    // over the channels, then a shuffle reduction
     const int lane = threadIdx.x & 31;
     for (int p = threadIdx.x >> 5; p < P; p += NT / 32) {
       if (!valid(C.T, p)) continue;   // the same for the whole warp
       float s = 0.f;
 #pragma unroll 8
       for (int c = lane; c < A.H; c += 32)
-        if (!PGE_SKIP(SKIP_FWD_DOT)) s += C.xval(A.L2, p, c) * A.wlast[c];
+        s += C.xval(A.L2, p, c) * A.wlast[c];
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
       if (lane == 0)
         out[(size_t)(C.T.i * TI + p / TJ) * A.n + C.T.j * TJ + p % TJ] = s;
     }
     __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Forward, tensor-core version (mm_bf16, the main path).
+//
+// A block of FT = 256 threads (two warpgroups) an SM walks its tiles.  A
+// hidden layer's product runs over the tile's 16 chunks of FM = 128 pairs
+// with the whole width H as one output chunk: 64 pairs x H channels a
+// warpgroup, one wgmma m64nHk16 per k16 step.  That is 128 fp32
+// accumulators a thread at H = 256, which 255 registers hold (245 used, no
+// spills) with one block an SM; this design keeps the two warpgroups that
+// compute the operand also issuing the products, rather than adding a
+// producer warpgroup with setmaxnreg, because the operand is computed by
+// threads, not copied (TMA would not help), and every register of the
+// consumers is taken by their accumulators.  The A operand of a chunk is
+// built once per depth step of 64, not once per output-column block, and
+// is read once per k16 step by the one wgmma, and W, the same for every
+// tile, stays in shared memory in bf16 (loaded once a block when L2 = 1
+// and H <= 256).
+// Above H = 256 the columns go in groups of at most 4 x 64 and the A
+// operand is built once per group ("halves"); the shared memory of a
+// block holds the operands up to H = 320.
+//
+// A chunk's pairs are 16 tile rows x 8 tile columns (row m of the chunk is
+// pair (m % 16, 8c + m / 16)), so its layer-0 operand needs the tile's 16
+// rows of a' = a*s + t (shared memory, once a tile) and 8 rows of b
+// (shared memory, once a chunk): X0 = relu(b*s + a') is two loads and an
+// FMA a float4, rounded to bf16 (round to nearest even) on the 8-byte
+// swizzled store.  A middle layer's operand is relu(z*s + t) from the
+// workspace.  Two A tiles: step s's wgmma runs while step s + 1 is built
+// into the other (one barrier a step, as in gemm_stage4).
+//
+// Statistics come from the accumulators, in float64 from the first add on
+// (z and z^2 of an fp32 z are exact there, so E[z^2] - mean^2 cancels no
+// fp32 rounding): per channel, each thread's two pairs (masked when
+// outside [n, n]) are added, the warp's 8 row groups are reduce-scattered
+// over shuffles in 3 rounds, and each warp adds its 16 pairs' sums into
+// its own float64 slot in shared memory.  Slots are added
+// in warp order once the tile's 16 chunks are through: a fixed order, no
+// atomics.  The output dot needs the top layer's statistics, so the top
+// product runs a second time and its epilogue applies BN + ReLU and the
+// dot with wlast, reduced over the channels of a pair row (4 lanes) with
+// nothing stored.  Only a launch whose result feeds the backward (keep)
+// writes the top layer's z and the statistics; a no-grad launch keeps only
+// middle layers' z, in a per-block buffer (none at L2 <= 1).  Both run the
+// same arithmetic, so their scores are equal bit for bit.
+// ---------------------------------------------------------------------------
+constexpr int FT = 256;            // threads of a forward block
+constexpr int FM = 128;            // pairs of a chunk (rows of the product)
+constexpr int FK = 64;             // depth step
+constexpr int NCHUNK = P / FM;     // chunks of a tile
+constexpr int FTILE = FM * FK;     // bf16 elements of an A operand tile
+constexpr int WTILE = 64 * FK;     // of a 64 x 64 tile of W
+constexpr int MAX_NBG = 4;         // 64-column blocks of an output group
+constexpr int FWARPS = FT / 32;
+
+__host__ __device__ constexpr int fwd_groups(int H) {
+  return (H / 64 + MAX_NBG - 1) / MAX_NBG;
+}
+// 64-column blocks of a group (the last group may have fewer)
+__host__ __device__ constexpr int fwd_nbg(int H) {
+  return (H / 64 + fwd_groups(H) - 1) / fwd_groups(H);
+}
+// W of a group, two A tiles, per-warp float64 sums and sums of squares,
+// a' [TI, H], the chunk's b rows [8, H], 6 per-channel rows, and the
+// pairs' partial dots when there is more than one group.
+__host__ __device__ constexpr int fwd_smem_bytes(int H) {
+  return fwd_nbg(H) * (H / 64) * WTILE * 2 + 2 * FTILE * 2 +
+         2 * FWARPS * fwd_nbg(H) * 64 * 8 + (TI + 8 + 6) * H * 4 +
+         (fwd_groups(H) > 1 ? P * 4 : 0);
+}
+
+struct FwdSmem {
+  unsigned short* W;   // [nbg x H/64] K-major 64 x 64 tiles of W (n rows)
+  unsigned short* A;   // [2][FM x FK] K-major tiles of X
+  double* SS;          // [FWARPS][nbg * 64] sums of z
+  double* SQ;          //                    sums of z^2
+  float* AP;           // [TI, H] a * s0 + t0
+  float* BB;           // [8, H] b rows of the chunk
+  float *SCi, *SHi;    // BatchNorm scale, shift of the operand's layer
+  float *SCo, *SHo;    // of the product's layer
+  float *BI, *WL;      // bias of the product's layer, wlast
+  float* RD;           // [P] partial dots across groups
+  __device__ void carve(unsigned char* base, int H) {
+    const int ncol = fwd_nbg(H) * 64;
+    W = reinterpret_cast<unsigned short*>(base);
+    A = W + ncol * H;
+    SS = reinterpret_cast<double*>(A + 2 * FTILE);
+    SQ = SS + FWARPS * ncol;
+    AP = reinterpret_cast<float*>(SQ + FWARPS * ncol);
+    BB = AP + TI * H;
+    SCi = BB + 8 * H;
+    SHi = SCi + H;
+    SCo = SHi + H;
+    SHo = SCo + H;
+    BI = SHo + H;
+    WL = BI + H;
+    RD = WL + H;
+  }
+};
+
+__device__ __forceinline__ float4 relu_fma4(float4 x, float4 s, float4 t) {
+  return make_float4(fmaxf(fmaf(x.x, s.x, t.x), 0.f),
+                     fmaxf(fmaf(x.y, s.y, t.y), 0.f),
+                     fmaxf(fmaf(x.z, s.z, t.z), 0.f),
+                     fmaxf(fmaf(x.w, s.w, t.w), 0.f));
+}
+
+// Layer-0 statistics (float64, from the factorization over the tile's
+// valid rows and columns) into SCi / SHi (and the tile's statistics when
+// S is set), then a' = a * s + t for the tile's 16 rows.
+__device__ void fwd_layer0(const Params& A, const Tile& T, const FwdSmem& M,
+                           float* S) {
+  const int H = A.H;
+  for (int c = threadIdx.x; c < H; c += FT) {
+    double sa = 0, saa = 0, sb = 0, sbb = 0;
+    for (int r = 0; r < T.nvr; ++r) {
+      const double v = A.a[(size_t)(T.i * TI + r) * H + c];
+      sa += v;
+      saa += v * v;
+    }
+    for (int q = 0; q < T.nvc; ++q) {
+      const double v = A.b[(size_t)(T.j * TJ + q) * H + c];
+      sb += v;
+      sbb += v * v;
+    }
+    const double mean = sa / T.nvr + sb / T.nvc;
+    const double e2 =
+        ((double)T.nvc * saa + (double)T.nvr * sbb + 2.0 * sa * sb) /
+        ((double)T.nvr * T.nvc);
+    const float invstd = rsqrtf((float)(e2 - mean * mean) + EPS);
+    const float scale = invstd * A.gamma[c];
+    const float shift = A.beta[c] - (float)mean * scale;
+    M.SCi[c] = scale;
+    M.SHi[c] = shift;
+    if (S) {
+      S[c] = (float)mean;
+      S[(A.L2 + 1) * H + c] = invstd;
+      S[2 * (A.L2 + 1) * H + c] = scale;
+      S[3 * (A.L2 + 1) * H + c] = shift;
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < TI * H; e += FT) {
+    const int r = e / H, c = e - r * H;
+    M.AP[e] = r < T.nvr
+                  ? fmaf(A.a[(size_t)(T.i * TI + r) * H + c], M.SCi[c],
+                         M.SHi[c])
+                  : 0.f;
+  }
+  __syncthreads();
+}
+
+// L2 = 0: out = relu(b * s + a') . wlast, a warp per pair.
+__device__ void fwd_dot0(const Params& A, const Tile& T, const FwdSmem& M,
+                         float* out) {
+  const int H = A.H, lane = threadIdx.x & 31;
+  for (int p = threadIdx.x >> 5; p < P; p += FWARPS) {
+    if (!valid(T, p)) continue;
+    const int i = p / TJ, j = p % TJ;
+    const float* b = A.b + (size_t)(T.j * TJ + j) * H;
+    float s = 0.f;
+    for (int k = 4 * lane; k < H; k += 128) {
+      const float4 x = relu_fma4(ld4(b + k), ld4(M.SCi + k),
+                                 ld4(M.AP + i * H + k));
+      const float4 w = ld4(M.WL + k);
+      s += x.x * w.x + x.y * w.y + x.z * w.z + x.w * w.w;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0) out[(size_t)(T.i * TI + i) * A.n + T.j * TJ + j] = s;
+  }
+  __syncthreads();
+}
+
+// Builds the A operand of chunk c, depth block kb of layer l's product into
+// As: a thread owns 4 depth values of the chunk rows rr + 16 q (q < 8),
+// which are the pairs (rr, 8c + q).
+__device__ __forceinline__ void fwd_stage(const Params& A, const FwdSmem& M,
+                                          const float* Zp, int l, int c,
+                                          int kb, unsigned short* As) {
+  const int H = A.H, k4 = threadIdx.x & 15, rr = threadIdx.x >> 4;
+  const int k = kb * FK + 4 * k4;
+  unsigned short* dst = As + rr * FK + ((((4 * k4) >> 3) ^ (rr & 7)) << 3) +
+                        ((4 * k4) & 7);
+  if (PGE_CONST & CONST_FWD_A) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      *reinterpret_cast<uint2*>(dst + 16 * q * FK) =
+          make_uint2(BF16_ONES, BF16_ONES);
+    return;
+  }
+  if (l == 1) {
+    const float4 ap = ld4(M.AP + rr * H + k), s = ld4(M.SCi + k);
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      *reinterpret_cast<uint2*>(dst + 16 * q * FK) =
+          pack4(relu_fma4(ld4(M.BB + q * H + k), s, ap));
+  } else {
+    const float4 s = ld4(M.SCi + k), t = ld4(M.SHi + k);
+    float4 z[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      z[q] = ld4(Zp + (size_t)(rr * TJ + c * 8 + q) * H + k);
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      *reinterpret_cast<uint2*>(dst + 16 * q * FK) =
+          pack4(relu_fma4(z[q], s, t));
+  }
+}
+
+// Columns n0 .. n0 + 64 nbg of layer l's W into shared memory as bf16
+// K-major tiles: tile kb holds W[64 kb + k][n0 + r] at row r (r < 64 nbg),
+// the B operand of one wgmma over the group's columns.
+__device__ void fwd_load_w(const Params& A, const FwdSmem& M, int l, int n0,
+                           int nbg) {
+  const int H = A.H, ncol = nbg * 64;
+  const float* W = A.wmid + (size_t)(l - 1) * H * H;
+  for (int e = threadIdx.x; e < H * ncol / 4; e += FT) {
+    const int k = e / (ncol / 4), n = (e - k * (ncol / 4)) * 4;
+    float4 v = ld4(W + (size_t)k * H + n0 + n);
+    if (PGE_CONST & CONST_FWD_B)
+      v = make_float4((float)((k + n) & 7), 1.f, 2.f, 3.f);
+    const float vv[4] = {v.x, v.y, v.z, v.w};
+    const int kb = k / FK, kl = k % FK;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int r = n + u;
+      M.W[kb * ncol * FK + r * FK + (((kl >> 3) ^ (r & 7)) << 3) +
+          (kl & 7)] = (unsigned short)(__float_as_uint(round_bf16(vv[u])) >>
+                                       16);
+    }
+  }
+  fence_async_smem();
+  __syncthreads();
+}
+
+template <int NA>
+__device__ __forceinline__ void wgmma_wait_all(float (&acc)[NA]) {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+  for (int i = 0; i < NA; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+}
+
+// One round of the reduce-scatter over a warp's 8 row groups: lanes XOR
+// apart exchange the half of their 4 * 2J partials that the other keeps.
+template <int J>
+__device__ __forceinline__ void rs_round(double (&v)[32], bool upper,
+                                         int x) {
+#pragma unroll
+  for (int jj = 0; jj < J; ++jj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const double lo = v[jj * 4 + e], hi = v[(jj + J) * 4 + e];
+      const double mine = upper ? hi : lo, theirs = upper ? lo : hi;
+      v[jj * 4 + e] = mine + __shfl_xor_sync(0xffffffffu, theirs, x);
+    }
+}
+
+// Layer l's product over the tile for column group g of NB 64-column
+// blocks (columns n0 ..): 16 chunks of nkb depth steps, each chunk closed
+// by its epilogue.  dot = false: z = X_{l-1} W + bias, stored to Zl when
+// it is set, and the chunk's per-channel sums added to the warps' slots
+// (stride ncol).  dot = true: out = relu(z * s + t) . wlast, the group's
+// share of each pair's dot added in RD across groups.  The wgmma and its
+// waits sit outside any data-dependent branch: a wgmma behind one is
+// serialized by the compiler.
+template <int NB>
+__device__ void fwd_group(const Params& A, const Tile& T, const FwdSmem& M,
+                          float* Zl, const float* Zp, int l, bool dot,
+                          float* out, int g, int n0, int ncol) {
+  const int H = A.H, nkb = H / FK, ngroups = fwd_groups(H);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, gid = lane >> 2, tig = lane & 3;
+  const int skip = PGE_SKIP(~0);
+  float acc[NB * 32];   // n8 block j of the group at acc[4 j]
+  const unsigned long long da = wg_desc(M.A + wg * 64 * FK, 16);
+  const unsigned long long dw = wg_desc(M.W, 16);
+  int s = 0;   // steps so far: step s builds its A tile in buffer s & 1
+#pragma unroll 1
+  for (int c = 0; c < NCHUNK; ++c) {
+    if (l == 1) {   // the chunk's 8 rows of b
+      for (int e = tid; e < 2 * H; e += FT) {
+        const int q = e / (H / 4), k = (e - q * (H / 4)) * 4;
+        const int j = T.j * TJ + c * 8 + q;
+        *reinterpret_cast<float4*>(M.BB + q * H + k) =
+            j < A.n ? ld4(A.b + (size_t)j * H + k)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      __syncthreads();
+    }
+#pragma unroll 1
+    for (int kb = 0; kb < nkb; ++kb, ++s) {
+      const int buf = s & 1;
+      fwd_stage(A, M, Zp, l, c, kb, M.A + buf * FTILE);
+      wgmma_wait_all(acc);   // step s - 1, the last reader of buf ^ 1
+      fence_async_smem();
+      __syncthreads();
+      if (!(skip & SKIP_FWD_MATMUL)) {
+        const unsigned long long a = da + buf * (FTILE * 2 >> 4);
+        const unsigned long long w = dw + kb * (NB * WTILE * 2 >> 4);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < FK / 16; ++kk)
+          wgmma_kmajor<NB * 64>(acc, a + kk * 2, w + kk * 2, kb | kk);
+        wgmma_commit();
+      }
+    }
+    wgmma_wait_all(acc);
+    // this warp's pairs: tile column 8c + warp, tile rows gid and gid + 8
+    const int jt = c * 8 + warp;
+    const bool okc = jt < T.nvc;
+    const bool ok_lo = okc && gid < T.nvr, ok_hi = okc && gid + 8 < T.nvr;
+    const size_t p_lo = (size_t)gid * TJ + jt, p_hi = p_lo + 8 * TJ;
+    float d_lo = 0.f, d_hi = 0.f;
+#pragma unroll
+    for (int jb = 0; jb < NB; ++jb) {
+      double v[32];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + jb * 64 + j * 8 + tig * 2;
+        const float2 bi = *reinterpret_cast<const float2*>(M.BI + n);
+        const float z00 = acc[jb * 32 + 4 * j] + bi.x;
+        const float z01 = acc[jb * 32 + 4 * j + 1] + bi.y;
+        const float z10 = acc[jb * 32 + 4 * j + 2] + bi.x;
+        const float z11 = acc[jb * 32 + 4 * j + 3] + bi.y;
+        if (dot) {
+          const float2 sc = *reinterpret_cast<const float2*>(M.SCo + n);
+          const float2 sh = *reinterpret_cast<const float2*>(M.SHo + n);
+          const float2 wl = *reinterpret_cast<const float2*>(M.WL + n);
+          d_lo += fmaxf(fmaf(z00, sc.x, sh.x), 0.f) * wl.x;
+          d_lo += fmaxf(fmaf(z01, sc.y, sh.y), 0.f) * wl.y;
+          d_hi += fmaxf(fmaf(z10, sc.x, sh.x), 0.f) * wl.x;
+          d_hi += fmaxf(fmaf(z11, sc.y, sh.y), 0.f) * wl.y;
+          continue;
+        }
+        if (Zl && !(skip & SKIP_FWD_STORE)) {
+          *reinterpret_cast<float2*>(Zl + p_lo * H + n) =
+              make_float2(z00, z01);
+          *reinterpret_cast<float2*>(Zl + p_hi * H + n) =
+              make_float2(z10, z11);
+        }
+        // float64 from here: z * z is exact, and no sum rounds in fp32
+        const double a0 = ok_lo ? z00 : 0.0, a1 = ok_lo ? z01 : 0.0;
+        const double b0 = ok_hi ? z10 : 0.0, b1 = ok_hi ? z11 : 0.0;
+        v[4 * j] = a0 + b0;
+        v[4 * j + 1] = a1 + b1;
+        v[4 * j + 2] = a0 * a0 + b0 * b0;
+        v[4 * j + 3] = a1 * a1 + b1 * b1;
+      }
+      if (dot || (skip & SKIP_FWD_STATS)) continue;
+      // reduce-scatter over the 8 row groups: lane bit 4, 3, 2 is bit 2,
+      // 1, 0 of gid and of the n8 block j it keeps
+      rs_round<4>(v, (gid >> 2) & 1, 16);
+      rs_round<2>(v, (gid >> 1) & 1, 8);
+      rs_round<1>(v, gid & 1, 4);
+      const int cl = jb * 64 + gid * 8 + tig * 2;
+      double* ss = M.SS + warp * ncol + cl;
+      double* sq = M.SQ + warp * ncol + cl;
+      ss[0] += v[0];
+      ss[1] += v[1];
+      sq[0] += v[2];
+      sq[1] += v[3];
+    }
+    if (dot) {
+      d_lo += __shfl_xor_sync(0xffffffffu, d_lo, 1);
+      d_lo += __shfl_xor_sync(0xffffffffu, d_lo, 2);
+      d_hi += __shfl_xor_sync(0xffffffffu, d_hi, 1);
+      d_hi += __shfl_xor_sync(0xffffffffu, d_hi, 2);
+      if (tig == 0) {
+        if (ngroups > 1) {
+          d_lo += g ? M.RD[p_lo] : 0.f;
+          d_hi += g ? M.RD[p_hi] : 0.f;
+          M.RD[p_lo] = d_lo;
+          M.RD[p_hi] = d_hi;
+        }
+        const size_t o = (size_t)(T.i * TI + gid) * A.n + T.j * TJ + jt;
+        if (g == ngroups - 1 && ok_lo) out[o] = d_lo;
+        if (g == ngroups - 1 && ok_hi) out[o + (size_t)8 * A.n] = d_hi;
+      }
+    }
+  }
+}
+
+// Layer l's product over the tile, for every column group.  dot = false:
+// the statistics of z into SCo / SHo (and S) as well.
+template <int NBG>
+__device__ void fwd_product(const Params& A, const Tile& T, const FwdSmem& M,
+                            float* Zl, const float* Zp, int l, bool dot,
+                            float* S, float* out, int& w_loaded) {
+  const int H = A.H, ngroups = fwd_groups(H), tid = threadIdx.x;
+  const int ncol = NBG * 64;   // stride of a warp's slots
+  for (int c = tid; c < H; c += FT) M.BI[c] = A.bmid[(l - 1) * H + c];
+  for (int g = 0; g < ngroups; ++g) {
+    const int n0 = g * NBG * 64, nbg = min(NBG, H / 64 - g * NBG);
+    if (w_loaded != l * 64 + g) {
+      __syncthreads();   // the last reads of the tiles it overwrites
+      fwd_load_w(A, M, l, n0, nbg);
+      w_loaded = l * 64 + g;
+    }
+    // of the widths the forward takes (H <= 320) only 320 has a group of
+    // fewer blocks (3 + 2); another instance of the product in the kernel
+    // of H = 256 would cost it registers
+    if (nbg == NBG) {
+      fwd_group<NBG>(A, T, M, Zl, Zp, l, dot, out, g, n0, ncol);
+    } else {
+      if constexpr (NBG == 3)
+        fwd_group<2>(A, T, M, Zl, Zp, l, dot, out, g, n0, ncol);
+    }
+    if (dot) continue;
+    // the group's statistics: warp slots added in warp order
+    __syncthreads();
+    if (tid < nbg * 64) {
+      const int c = n0 + tid;
+      double s = 0, q = 0;
+#pragma unroll
+      for (int w = 0; w < FWARPS; ++w) {
+        s += M.SS[w * ncol + tid];
+        q += M.SQ[w * ncol + tid];
+        M.SS[w * ncol + tid] = 0.0;
+        M.SQ[w * ncol + tid] = 0.0;
+      }
+      const double mean = s / T.count;
+      const float invstd = rsqrtf((float)(q / T.count - mean * mean) + EPS);
+      const float scale = invstd * A.gamma[l * H + c];
+      const float shift = A.beta[l * H + c] - (float)mean * scale;
+      M.SCo[c] = scale;
+      M.SHo[c] = shift;
+      if (S) {
+        const int L = A.L2 + 1;
+        S[l * H + c] = (float)mean;
+        S[(L + l) * H + c] = invstd;
+        S[(2 * L + l) * H + c] = scale;
+        S[(3 * L + l) * H + c] = shift;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// keep: the launch feeds the backward, so the tile's workspace (every
+// layer's z) and statistics are written; else middle layers' z go to the
+// block's own buffer in A.ws ((L2 - 1) x P x H) and nothing else is kept.
+template <int NBG>
+__global__ void __launch_bounds__(FT, 1)
+pge_fwd_kernel(Params A, float* out, int keep) {
+  extern __shared__ __align__(1024) unsigned char fwd_smem[];
+  FwdSmem M;
+  M.carve(fwd_smem, A.H);
+  const int H = A.H, L2 = A.L2;
+  const size_t PH = (size_t)P * H;
+  for (int c = threadIdx.x; c < H; c += FT) M.WL[c] = A.wlast[c];
+  for (int e = threadIdx.x; e < 2 * FWARPS * NBG * 64; e += FT) M.SS[e] = 0.0;
+  int w_loaded = -1;
+  for (int t = blockIdx.x; t < A.ntiles; t += gridDim.x) {
+    const Tile T = make_tile(t, A.n, A.nj);
+    float* ws = keep ? A.ws + (size_t)t * L2 * PH
+                     : A.ws + (size_t)blockIdx.x * max(L2 - 1, 0) * PH;
+    float* S = keep ? A.stat + (size_t)t * stat_rows(L2) * H : nullptr;
+    __syncthreads();   // the tile before's last reads of AP, SCi, SHi
+    fwd_layer0(A, T, M, S);
+    if (L2 == 0) {
+      fwd_dot0(A, T, M, out);
+      continue;
+    }
+    for (int l = 1; l <= L2; ++l) {
+      fwd_product<NBG>(A, T, M, keep || l < L2 ? ws + (l - 1) * PH : nullptr,
+                       l >= 2 ? ws + (l - 2) * PH : nullptr, l, false, S,
+                       out, w_loaded);
+      if (l < L2) {
+        for (int c = threadIdx.x; c < H; c += FT) {
+          M.SCi[c] = M.SCo[c];
+          M.SHi[c] = M.SHo[c];
+        }
+        __syncthreads();
+      }
+    }
+    if (PGE_SKIP(SKIP_FWD_DOT)) continue;
+    fwd_product<NBG>(A, T, M, nullptr, L2 >= 2 ? ws + (L2 - 2) * PH : nullptr,
+                     L2, true, S, out, w_loaded);
   }
 }
 
@@ -1040,10 +1507,6 @@ struct BwdSmem {
     ring = GS + P;
   }
 };
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
 
 // A float4 of the workspace, read once per pass: it bypasses L1, which the
 // backward's shared memory leaves about 28 KB of an SM, too little to hold

@@ -7,9 +7,14 @@ operations of a GCond outer step.  Two hand-written CUDA C++ kernels for
 ``graphslim_tpu/kernels/pallas_pge.py::_fwd_kernel`` (forward) and
 ``::_bwd_kernel`` (backward).  They read the factorized first-layer
 projections ``a = x·W₀ₐ`` and ``b = x·W₀ᵦ + b₀`` and write the [n, n]
-scores (forward) or the seven gradients (backward).  The forward keeps
+scores (forward) or the seven gradients (backward).  The forward takes
+each hidden layer's BatchNorm statistics in the epilogue of its product
+and runs the top layer's product a second time to apply BatchNorm, ReLU
+and the dot with ``wlast`` there (:func:`pair_scores_fwd_plain` is that
+dataflow in tensor ops).  A launch whose scores feed the backward keeps
 each tile's pre-BatchNorm activations and statistics in a workspace in
-device memory, which the backward reads instead of recomputing them.  The
+device memory, which the backward reads instead of recomputing them; a
+launch under no gradient keeps none (:func:`keeps_workspace`).  The
 backward keeps no gradient of a tile in device memory: a reduction pass
 gives each layer's dγ and dβ, dz is formed while the operands of its two
 products are staged, and layer 0 keeps only row and column sums, from
@@ -24,14 +29,18 @@ Bound on the H100 at the slice's shapes (n = 1354, H = 256, L2 = 1): the
 forward is 240 GFLOP of matmul over the valid pairs (0.24 ms at the
 989 TFLOP/s bf16 peak) and bound by operations; the backward does twice
 those operations (dW and dX) and reads the 1.9 GB workspace (0.56 ms at
-3.35 TB/s), so it is bound by bytes.  With ``mm_bf16`` (the main path) the
-matmuls run on the tensor cores (``mma.sync`` in the forward, ``wgmma`` in
-the backward), else on the CUDA cores in fp32.  ``PERF.md`` holds the kernels' times beside these bounds.
+3.35 TB/s), so it is bound by bytes.  The forward launch that keeps the
+workspace also writes its 1.96 GB: 0.585 ms at 3.35 TB/s.  With
+``mm_bf16`` (the main path) the matmuls run on the tensor cores
+(``wgmma``), else on the CUDA cores in fp32 (the forward then passes
+through the per-tile workspace in every launch).  ``PERF.md`` holds the
+kernels' times beside these bounds.
 
 :func:`pair_scores` takes the kernels for a CUDA tensor and the plain
 version for a CPU tensor; a CUDA tensor never falls back.  The kernels are
 built with ``nvcc`` at first use into ``build/kernels/`` and bound with
-ctypes; ``LAUNCHES`` counts each kernel's launches.
+ctypes; ``LAUNCHES`` counts each kernel's launches, the forward's two
+kinds apart (``pge_fwd_ws`` keeps the workspace, ``pge_fwd_nows`` not).
 """
 
 from __future__ import annotations
@@ -49,9 +58,10 @@ P = TI * TJ       # pairs per tile: the BatchNorm population
 EPS = 1e-5        # BatchNorm epsilon
 _H_MULTIPLE = 64  # the kernels' matmul tile width (pge::BN)
 
-LAUNCHES = {"pge_fwd": 0, "pge_bwd": 0}
-# the last backward launch: its grid and the bytes of device-memory scratch
-# the wrapper allocated for it
+LAUNCHES = {"pge_fwd_ws": 0, "pge_fwd_nows": 0, "pge_bwd": 0}
+# the last forward and backward launch: grid and the bytes of device-memory
+# workspace or scratch the wrapper allocated for it
+LAST_FWD: dict = {}
 LAST_BWD: dict = {}
 
 _LIB = None
@@ -88,7 +98,7 @@ def build() -> ctypes.CDLL:
         return _LIB
     lib, info = load_library("pge")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.pge_fwd.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
+    lib.pge_fwd.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
     lib.pge_fwd.restype = i32
     lib.pge_bwd.argtypes = [ptr] * 18 + [i32] * 5 + [ptr]
     lib.pge_bwd.restype = i32
@@ -96,6 +106,8 @@ def build() -> ctypes.CDLL:
     lib.pge_blocks_per_sm.restype = i32
     lib.pge_bwd_smem_bytes.argtypes = [i32, i32]
     lib.pge_bwd_smem_bytes.restype = i32
+    lib.pge_fwd_smem_bytes.argtypes = [i32]
+    lib.pge_fwd_smem_bytes.restype = i32
     BUILD_INFO.update(info)
     _LIB = lib
     return lib
@@ -105,9 +117,10 @@ _PER_SM: dict = {}
 
 
 def blocks_per_sm(lib, bwd: bool, mm_bf16: bool, H: int) -> int:
-    """Blocks of a kernel that one SM holds at once (the backward's depend
-    on the width through its shared memory); asked once per case."""
-    key = (bwd, mm_bf16, H if bwd else 0)
+    """Blocks of a kernel that one SM holds at once (the tensor-core
+    kernels' depend on the width through their shared memory); asked once
+    per case."""
+    key = (bwd, mm_bf16, H if bwd or mm_bf16 else 0)
     if key not in _PER_SM:
         per_sm = ctypes.c_int(0)
         rc = lib.pge_blocks_per_sm(int(bwd), int(mm_bf16), H,
@@ -123,7 +136,8 @@ def blocks_per_sm(lib, bwd: bool, mm_bf16: bool, H: int) -> int:
 def _grid(lib, device: torch.device, ntiles: int, bwd: bool, mm_bf16: bool,
           H: int) -> int:
     """Persistent grid: as many blocks as fit on the card at once (at most
-    two per SM by the kernels' launch bounds), at most one per tile."""
+    two per SM by the kernels' launch bounds, one for the tensor-core
+    forward), at most one per tile."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(ntiles, blocks_per_sm(lib, bwd, mm_bf16, H) * sms))
 
@@ -170,25 +184,52 @@ def _workspace_sizes(n: int, H: int, L2: int) -> tuple:
     return ntiles * L2 * P * H, ntiles * _stat_rows(L2) * H
 
 
-def pge_fwd(a, b, wmid, bmid, gamma, beta, wlast, n: int,
-            mm_bf16: bool) -> tuple:
+def fwd_buffer_sizes(n: int, H: int, L2: int, grid: int, mm_bf16: bool,
+                     keep: bool) -> tuple:
+    """Floats of (workspace, statistics) one forward launch allocates: the
+    per-tile ones the backward reads when ``keep`` and in every launch of
+    the fp32 version (whose dataflow passes through them); else a
+    per-block buffer that only the tensor-core version's middle layers use
+    (none for L2 ≤ 1)."""
+    if keep or not mm_bf16:
+        return _workspace_sizes(n, H, L2)
+    return grid * max(L2 - 1, 0) * P * H, 0
+
+
+def keeps_workspace(grad_enabled: bool, requires_grad: bool) -> bool:
+    """Whether a forward launch keeps the per-tile workspace: only when
+    its scores can reach the backward, i.e. gradients are recorded and
+    some input requires one."""
+    return grad_enabled and requires_grad
+
+
+def pge_fwd(a, b, wmid, bmid, gamma, beta, wlast, n: int, mm_bf16: bool,
+            keep: bool = True) -> tuple:
     """(scores [n, n] without the final bias, workspace, statistics) from
-    the forward kernel; the last two are what :func:`pge_bwd` reads."""
+    the forward kernel; with ``keep`` the last two are the per-tile ones
+    :func:`pge_bwd` reads, else the launch's own scratch (empty for the
+    tensor-core version at L2 ≤ 1)."""
     H, L2 = _check(a, b, wmid, bmid, gamma, beta, wlast, n)
     lib = build()
+    if mm_bf16 and lib.pge_fwd_smem_bytes(H) < 0:
+        raise ValueError(f"the tensor-core PGE forward takes widths whose "
+                         f"operands fit a block's shared memory (up to "
+                         f"320), got {H}")
     ntiles = _cdiv(n, TI) * _cdiv(n, TJ)
     grid = _grid(lib, a.device, ntiles, False, mm_bf16, H)
     f32 = dict(dtype=torch.float32, device=a.device)
     out = torch.empty(n, n, **f32)
-    n_ws, n_stat = _workspace_sizes(n, H, L2)
+    n_ws, n_stat = fwd_buffer_sizes(n, H, L2, grid, mm_bf16, keep)
     ws = torch.empty(n_ws, **f32)
     stat = torch.empty(n_stat, **f32)
+    LAST_FWD.update(grid=grid, keep=keep,
+                    workspace_bytes=4 * (n_ws + n_stat))
     rc = lib.pge_fwd(_p(a), _p(b), _p(wmid), _p(bmid), _p(gamma), _p(beta),
                      _p(wlast), _p(out), _p(ws), _p(stat), n, H, L2, grid,
-                     int(mm_bf16), _stream(a.device))
+                     int(mm_bf16), int(keep), _stream(a.device))
     if rc != 0:
         raise RuntimeError(f"pge_fwd_kernel launch failed: CUDA error {rc}")
-    LAUNCHES["pge_fwd"] += 1
+    LAUNCHES["pge_fwd_ws" if keep else "pge_fwd_nows"] += 1
     return out, ws, stat
 
 
@@ -258,7 +299,7 @@ class PGEPairScores(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b, wmid, bmid, gamma, beta, wlast, n, mm_bf16):
         out, ws, stat = pge_fwd(a, b, wmid, bmid, gamma, beta, wlast, n,
-                                mm_bf16)
+                                mm_bf16, keep=True)
         ctx.save_for_backward(a, b, wmid, bmid, gamma, beta, wlast, ws,
                               stat)
         ctx.n, ctx.mm_bf16 = n, mm_bf16
@@ -313,6 +354,62 @@ def pair_scores_plain(a, b, wmid, bmid, gamma, beta, wlast, n: int,
         xhat = (h - mean) * torch.rsqrt(var + EPS)
         h = torch.relu(xhat * gamma[l] + beta[l])
     out = (h * wlast[0]).sum(-1)
+    out = out.reshape(ni, nj, TI, TJ).permute(0, 2, 1, 3)
+    return out.reshape(ni * TI, nj * TJ)[:n, :n]
+
+
+def pair_scores_fwd_plain(a, b, wmid, bmid, gamma, beta, wlast, n: int,
+                          mm_bf16: bool = True) -> torch.Tensor:
+    """The tensor-core forward kernel's dataflow in tensor ops, without
+    autograd → scores [n, n].
+
+    Layer 0: statistics in float64 from the factorization over the tile's
+    valid rows and columns, then the folded operand X₀ = relu(b·s + a')
+    with a' = a·s + t.  A hidden layer's statistics come from partial sums
+    as the kernel's epilogue takes them, all in float64: a warp adds the
+    16 pairs of one tile column, and those partials add up.  The
+    output dot applies BatchNorm, ReLU and ``wlast`` to the top layer's z
+    (the kernel recomputes that product; its value is the same)."""
+    H, L2 = a.shape[1], wmid.shape[0]
+    ni, nj = _cdiv(n, TI), _cdiv(n, TJ)
+    T = ni * nj
+    mm = (lambda x, y: _bf16(x) @ _bf16(y)) if mm_bf16 else torch.matmul
+    at = _pad_rows(a, ni * TI).reshape(ni, 1, TI, H).expand(ni, nj, TI, H)
+    bt = _pad_rows(b, nj * TJ).reshape(1, nj, TJ, H).expand(ni, nj, TJ, H)
+    at, bt = at.reshape(T, TI, H), bt.reshape(T, TJ, H)
+    rows = torch.arange(ni * TI, device=a.device).reshape(ni, 1, TI) < n
+    cols = torch.arange(nj * TJ, device=a.device).reshape(1, nj, TJ) < n
+    rmask = rows.expand(ni, nj, TI).reshape(T, TI, 1)
+    cmask = cols.expand(ni, nj, TJ).reshape(T, TJ, 1)
+    mask = (rmask.reshape(T, TI, 1, 1) & cmask.reshape(T, 1, TJ, 1))
+    nvr = rmask.sum(1, keepdim=True).double()
+    nvc = cmask.sum(1, keepdim=True).double()
+    count = nvr * nvc                                     # [T, 1, 1]
+
+    def fold(mean, var, l):
+        invstd = torch.rsqrt(var.to(a.dtype) + EPS)
+        scale = invstd * gamma[l]
+        return scale, beta[l] - mean.to(a.dtype) * scale
+
+    ad, bd = at.double() * rmask, bt.double() * cmask
+    sa, sb = ad.sum(1, keepdim=True), bd.sum(1, keepdim=True)
+    mean = sa / nvr + sb / nvc
+    e2 = (nvc * (ad * ad).sum(1, keepdim=True)
+          + nvr * (bd * bd).sum(1, keepdim=True) + 2 * sa * sb) / count
+    scale, shift = fold(mean, e2 - mean * mean, 0)
+    ap = (at * scale + shift) * rmask                     # [T, TI, H]
+    x = torch.relu(bt[:, None] * scale[:, None] + ap[:, :, None])
+    x = x.reshape(T, P, H)
+    for l in range(1, L2 + 1):
+        z = mm(x, wmid[l - 1]) + bmid[l - 1]
+        zm = (z.reshape(T, TI, TJ, H) * mask)
+        zd = zm.double()
+        s1 = zd.sum(1).sum(1, keepdim=True)               # [T, 1, H]
+        s2 = (zd * zd).sum(1).sum(1, keepdim=True)
+        mean = s1 / count
+        scale, shift = fold(mean, s2 / count - mean * mean, l)
+        x = torch.relu(z * scale + shift)
+    out = (x * wlast[0]).sum(-1)
     out = out.reshape(ni, nj, TI, TJ).permute(0, 2, 1, 3)
     return out.reshape(ni * TI, nj * TJ)[:n, :n]
 
@@ -418,12 +515,16 @@ def pair_scores_bwd_plain(a, b, wmid, bmid, gamma, beta, wlast, g, n: int,
 def pair_scores(a, b, wmid, bmid, gamma, beta, wlast, n: int,
                 mm_bf16: bool = True) -> torch.Tensor:
     """Pair-MLP scores [n, n] (before symmetrize/sigmoid, no last bias):
-    the CUDA kernels for a CUDA tensor, the plain version for a CPU one."""
+    the CUDA kernels for a CUDA tensor, the plain version for a CPU one.
+    On the card a launch keeps the workspace only where a gradient can
+    follow (:func:`keeps_workspace`)."""
     if a.device.type == "cuda":
-        return PGEPairScores.apply(
-            a.contiguous(), b.contiguous(), wmid.contiguous(),
-            bmid.contiguous(), gamma.contiguous(), beta.contiguous(),
-            wlast.contiguous(), n, mm_bf16)
+        args = [t.contiguous() for t in (a, b, wmid, bmid, gamma, beta,
+                                         wlast)]
+        if keeps_workspace(torch.is_grad_enabled(),
+                           any(t.requires_grad for t in args)):
+            return PGEPairScores.apply(*args, n, mm_bf16)
+        return pge_fwd(*args, n, mm_bf16, keep=False)[0]
     if a.device.type == "cpu":
         return pair_scores_plain(a, b, wmid, bmid, gamma, beta, wlast, n,
                                  mm_bf16)

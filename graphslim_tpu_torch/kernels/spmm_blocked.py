@@ -33,8 +33,12 @@ What the layout keeps of the TPU design, and what it changes for the card:
   card with such tiles: on a coreset's subgraph (1336 rows) tiles of 16
   rows run the kernel in 0.010 ms against 0.016-0.021 ms with 64
   (``chip_smoke.py``, H100);
-* one thread block owns one destination tile, so no sum crosses thread
-  blocks: no atomics, results repeat bit for bit.
+* one thread block owns one destination tile and walks its entries once
+  for every column of ``x`` up to 128 float4 or 160 float columns
+  (:func:`launch_plan`): lanes over the columns at d > 64, several entries
+  of a row at once on groups of lanes at d ≤ 64; wider rows take slabs of
+  128 columns, one walk each; no sum crosses thread blocks: no atomics,
+  results repeat bit for bit.
 
 The kernel is bound by bytes: entries × 8 B (index + value) + one read of
 ``x`` + one write of ``out`` at the card's memory rate.
@@ -43,7 +47,7 @@ The kernel is bound by bytes: entries × 8 B (index + value) + one read of
 takes :func:`spmm_blocked_plain` for a CPU tensor.  :class:`SpmmBlocked`
 is the autograd Function behind ``SparseAdj.matmul`` on the card: its
 backward launches the same kernel on the transposed layout.  ``LAUNCHES``
-counts the kernel's launches.
+counts the kernel's launches, ``LAUNCHES_BY_WIDTH`` the same by d.
 """
 
 from __future__ import annotations
@@ -60,7 +64,8 @@ from torch.autograd.function import once_differentiable
 from graphslim_tpu_torch.kernels.build import load_library
 from graphslim_tpu_torch.utils import resolve_device
 
-SLAB = 128       # columns a thread block covers (csrc/spmm_common.cuh: SLAB)
+SLAB = 128       # columns of a slab where d is cut into slabs (launch_plan)
+WALK_FLOATS = 160  # widest row of floats (d no multiple of 4) walked once
 TD = 64          # default destination-tile rows of a large matrix ...
 TD_MIN = 16      # ... halved down to this while the matrix has fewer than
 MIN_TILES = 512  # this many tiles (thread blocks a column slab: 4 an SM)
@@ -70,6 +75,7 @@ STAGE_REUSE = 24  # uses of every staged row at which staging starts to pay
 _MAX_SMEM = 232448   # bytes of shared memory a block can use on an H100
 
 LAUNCHES = {"spmm_blocked": 0}
+LAUNCHES_BY_WIDTH: dict = {}   # d → launches of the kernel at that width
 
 _LIB = None
 BUILD_INFO: dict = {}
@@ -78,6 +84,7 @@ BUILD_INFO: dict = {}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCHES_BY_WIDTH.clear()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -238,7 +245,7 @@ def build() -> ctypes.CDLL:
         return _LIB
     lib, info = load_library("spmm_blocked")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.spmm_blocked.argtypes = [ptr] * 8 + [i32] * 8 + [ptr]
+    lib.spmm_blocked.argtypes = [ptr] * 8 + [i32] * 11 + [ptr]
     lib.spmm_blocked.restype = i32
     BUILD_INFO.update(info)
     _LIB = lib
@@ -262,6 +269,35 @@ def _check(layout: BlockedCOO, x: torch.Tensor) -> None:
         raise ValueError("x must be contiguous")
 
 
+def launch_plan(d: int, vec: bool, ts: int = TS,
+                staged: bool = False) -> dict:
+    """How one launch covers ``d`` columns (``csrc/spmm_blocked.cu``).
+
+    ``slab``: columns a thread block walks the entries for.  All of ``d``
+    up to ``SLAB`` = 128 float4 columns, or ``WALK_FLOATS`` = 160 when d
+    is no multiple of 4 (the evaluator's [X | 1] at d = 129): one walk of a
+    destination tile's entries.  Wider rows, and a staged source tile of
+    ``ts`` rows that would not fit shared memory, take slabs of 128
+    (on the arxiv twin at d = 256 one walk read 1.3534 ms against 1.0885
+    for two slabs, ``chip_smoke.py`` on an H100 80GB HBM3 at 700 W:
+    ``PERF.md``).  ``n_slabs``: walks of a tile's entries
+    (grid.y).  A lane covers ``nv`` ≤ 5 items (float4s with ``vec``, else
+    floats) of a row at ``lpr`` = 32 lanes a row; a row of at most 16
+    items takes ``lpr`` = items lanes and ``32 // lpr`` entries at once.
+    ``busy``: lanes of a warp that work."""
+    unit = 4 if vec else 1
+    slab = d if d <= (SLAB if vec else WALK_FLOATS) else SLAB
+    if staged and ts * slab * 4 > _MAX_SMEM:
+        slab = SLAB
+    items = -(-slab // unit)
+    if items <= 16:
+        lpr, nv = items, 1
+    else:
+        lpr, nv = 32, -(-items // 32)
+    return dict(slab=slab, n_slabs=-(-d // slab), lpr=lpr, nv=nv,
+                busy=(32 // lpr) * min(lpr, items))
+
+
 def spmm_blocked_cuda(layout: BlockedCOO, x: torch.Tensor) -> torch.Tensor:
     """One launch of the kernel: ``A @ x`` as float32 [n_rows, d]."""
     if not x.is_cuda:
@@ -272,12 +308,13 @@ def spmm_blocked_cuda(layout: BlockedCOO, x: torch.Tensor) -> torch.Tensor:
                       device=x.device)
     if layout.n_rows == 0 or d == 0:
         return out
-    smem = layout.ts * SLAB * 4 if layout.n_staged else 0
+    vec = d % 4 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    plan = launch_plan(d, vec, layout.ts, layout.n_staged > 0)
+    smem = layout.ts * plan["slab"] * 4 if layout.n_staged else 0
     if smem > _MAX_SMEM:
         raise ValueError(f"a staged source tile of ts={layout.ts} rows "
                          f"needs {smem} bytes of shared memory, over the "
                          f"{_MAX_SMEM} a block has")
-    vec = d % 4 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     lib = build()
     rc = lib.spmm_blocked(
         layout.tile_ptr.data_ptr(), layout.blk_ptr.data_ptr(),
@@ -285,11 +322,13 @@ def spmm_blocked_cuda(layout: BlockedCOO, x: torch.Tensor) -> torch.Tensor:
         layout.src_local.data_ptr(), layout.val.data_ptr(), x.data_ptr(),
         out.data_ptr(), layout.n_rows, layout.n_rows, d, layout.td,
         layout.ts, layout.tile_ptr.shape[0] - 1, smem, int(vec),
+        plan["slab"], plan["lpr"], plan["nv"],
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"spmm_blocked_kernel launch failed: CUDA error "
                            f"{rc}")
     LAUNCHES["spmm_blocked"] += 1
+    LAUNCHES_BY_WIDTH[d] = LAUNCHES_BY_WIDTH.get(d, 0) + 1
     return out
 
 

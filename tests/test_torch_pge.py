@@ -194,3 +194,95 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     arrs, _ = _inputs(20, 64, 1, seed=6)
     with pytest.raises(ValueError, match="CUDA"):
         K.pge_fwd(*[torch.tensor(a) for a in arrs], 20, True)
+
+
+@pytest.mark.parametrize("L2", [0, 1, 2])
+@pytest.mark.parametrize("H", [64, 128])
+@pytest.mark.parametrize("n", [45, 150, 300])
+def test_fwd_dataflow_plain_matches_plain(n, H, L2):
+    """The tensor-core forward's dataflow in tensor ops (float64 layer-0
+    statistics, the folded operand relu(b·s + a·s + t), statistics from
+    per-column float32 partials added in float64) against the plain
+    version in fp32: only roundings differ, max|Δ| ≤ 1e-6·max|ref| +
+    1e-6."""
+    arrs, _ = _inputs(n, H, L2, seed=n + H + L2)
+    t = [torch.tensor(a) for a in arrs]
+    with torch.no_grad():
+        got = K.pair_scores_fwd_plain(*t, n, mm_bf16=False)
+        want = K.pair_scores_plain(*t, n, mm_bf16=False)
+    assert got.shape == (n, n)
+    err = float((got - want).abs().max())
+    assert err <= 1e-6 * float(want.abs().max()) + 1e-6, err
+
+
+@pytest.mark.parametrize("regime,beta_shift", [("off_kink", 3.0),
+                                               ("generic", 0.0)])
+@pytest.mark.parametrize("L2", [0, 1, 2])
+@pytest.mark.parametrize("n", [150, 300])
+def test_fwd_dataflow_plain_matches_jax_ref(n, L2, regime, beta_shift):
+    """The same dataflow against ``pallas_pge.pair_scores_ref`` of the JAX
+    package, with this file's forward tolerance (1e-4·max|ref| + 1e-5)."""
+    H = 64
+    arrs, _ = _inputs(n, H, L2, seed=n + L2, beta_shift=beta_shift)
+    want = np.asarray(pp.pair_scores_ref(*map(jnp.asarray, arrs), n))
+    with torch.no_grad():
+        got = K.pair_scores_fwd_plain(*[torch.tensor(a) for a in arrs], n,
+                                      mm_bf16=False)
+    _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n,L2", [(150, 1), (300, 2)])
+def test_fwd_dataflow_bf16_within_the_kernel_tolerance(n, L2):
+    """With bf16 operands the dataflow rounds another operand than the
+    plain version where the fold moves a value across a bf16 rounding
+    boundary: within TOL_FWD's 2e-2·max|ref| + 1e-4 of the plain bf16
+    version, and not equal to the fp32 dataflow."""
+    H = 64
+    arrs, _ = _inputs(n, H, L2, seed=n + L2)
+    t = [torch.tensor(a) for a in arrs]
+    with torch.no_grad():
+        got = K.pair_scores_fwd_plain(*t, n, mm_bf16=True)
+        want = K.pair_scores_plain(*t, n, mm_bf16=True)
+        exact = K.pair_scores_fwd_plain(*t, n, mm_bf16=False)
+    assert float((got - want).abs().max()) <= \
+        2e-2 * float(want.abs().max()) + 1e-4
+    assert not torch.equal(got, exact)
+
+
+@pytest.mark.parametrize("grad_enabled", [False, True])
+@pytest.mark.parametrize("requires_grad", [False, True])
+def test_keeps_workspace_only_where_a_gradient_can_follow(grad_enabled,
+                                                          requires_grad):
+    assert K.keeps_workspace(grad_enabled, requires_grad) == \
+        (grad_enabled and requires_grad)
+
+
+@pytest.mark.parametrize("mm_bf16", [False, True])
+@pytest.mark.parametrize("L2", [0, 1, 2, 3])
+def test_fwd_buffer_sizes_per_launch_kind(L2, mm_bf16):
+    """A launch that keeps the workspace allocates the per-tile workspace
+    and statistics the backward reads; a no-grad tensor-core launch only a
+    per-block buffer for middle layers (nothing at L2 ≤ 1); the fp32
+    version, which passes through the workspace, the per-tile ones."""
+    n, H, grid = 1354, 256, 132
+    kept = K.fwd_buffer_sizes(n, H, L2, grid, mm_bf16, keep=True)
+    assert kept == K._workspace_sizes(n, H, L2)
+    assert kept[0] == 935 * L2 * K.P * H
+    ws, stat = K.fwd_buffer_sizes(n, H, L2, grid, mm_bf16, keep=False)
+    if mm_bf16:
+        assert (ws, stat) == (grid * max(L2 - 1, 0) * K.P * H, 0)
+    else:
+        assert (ws, stat) == kept
+
+
+def test_pair_scores_without_grad_on_cpu_takes_the_plain_version():
+    """Under no_grad the dispatch is the same on the CPU: the plain
+    version, no launch, the same scores."""
+    n, H = 30, 64
+    arrs, _ = _inputs(n, H, 1, seed=9)
+    t = [torch.tensor(a, requires_grad=True) for a in arrs]
+    before = dict(K.LAUNCHES)
+    with torch.no_grad():
+        out = K.pair_scores(*t, n, mm_bf16=True)
+    assert K.LAUNCHES == before and not out.requires_grad
+    torch.testing.assert_close(out, K.pair_scores_plain(*t, n, True).detach())

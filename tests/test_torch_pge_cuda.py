@@ -143,3 +143,84 @@ def test_backward_kernel_matches_its_plain_dataflow(card, n, H, L2, bf16):
         gap, top = float((x - y).abs().max()), float(scale.abs().max())
         assert gap <= rtol * top + atol, \
             f"{GRADS[i]}: max|Δ| / max|ref| = {gap / top:.3e}"
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("L2", [0, 1, 2])
+@pytest.mark.parametrize("H", [64, 128, 256, 320])
+@pytest.mark.parametrize("n", [1, 17, 129, 500, 1354])
+def test_forward_matches_plain_version(card, n, H, L2, bf16):
+    """Both launch kinds against the plain version (chip_smoke.py's
+    TOL_FWD: 1e-4·max|ref| + 1e-5 in fp32, 2e-2·max|ref| + 1e-4 with bf16
+    operands), and against each other bit for bit."""
+    rtol, atol = (2e-2, 1e-4) if bf16 else (1e-4, 1e-5)
+    args = _inputs(n, H, L2, card)
+    kept, _, _ = K.pge_fwd(*args, n, bf16, keep=True)
+    bare, _, _ = K.pge_fwd(*args, n, bf16, keep=False)
+    with torch.no_grad():
+        ref = K.pair_scores_plain(*args, n, bf16)
+    torch.cuda.synchronize()
+    assert torch.equal(kept, bare)
+    gap = float((kept - ref).abs().max())
+    assert gap <= rtol * float(ref.abs().max()) + atol, gap
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("n,H,L2", [(1354, 256, 1), (300, 128, 2),
+                                    (45, 64, 0), (150, 320, 1)])
+def test_nograd_launch_keeps_no_workspace(card, n, H, L2, bf16):
+    """pair_scores under no_grad launches the kind that keeps no per-tile
+    workspace (none at all for the tensor-core version at L2 ≤ 1), with
+    grad the kind the backward reads; their scores are equal bit for
+    bit, and each kind is counted apart."""
+    args = _inputs(n, H, L2, card)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    before = dict(K.LAUNCHES)
+    with torch.no_grad():
+        bare = K.pair_scores(*leaves, n, bf16)
+    bare_bytes = K.LAST_FWD["workspace_bytes"]
+    assert not K.LAST_FWD["keep"]
+    kept = K.pair_scores(*leaves, n, bf16)
+    assert K.LAST_FWD["keep"] and kept.requires_grad
+    torch.cuda.synchronize()
+    assert torch.equal(kept.detach(), bare)
+    assert K.LAUNCHES["pge_fwd_nows"] == before["pge_fwd_nows"] + 1
+    assert K.LAUNCHES["pge_fwd_ws"] == before["pge_fwd_ws"] + 1
+    ws, stat = K._workspace_sizes(n, H, L2)
+    assert K.LAST_FWD["workspace_bytes"] == 4 * (ws + stat)
+    if bf16:   # only middle layers' z, in a per-block buffer
+        assert bare_bytes == 4 * K.LAST_FWD["grid"] * max(L2 - 1, 0) * \
+            K.P * H
+    else:      # the fp32 version passes through the per-tile workspace
+        assert bare_bytes == 4 * (ws + stat)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("n,H,L2", [(300, 128, 2), (1354, 256, 1)])
+def test_forward_statistics_hold_to_float64_under_a_large_mean(card, n, H,
+                                                               L2, bf16):
+    """A hidden layer's mean and invstd as the forward wrote them, against
+    float64 statistics (two passes) of the z it wrote beside them, with a
+    bias that puts each channel's mean about 30 of its standard deviations
+    from 0.  var = E[z²] − mean² would then lose mean²/var (about 900) times
+    any fp32 rounding of the sums; every sum runs in float64, so the
+    kernel's values stay within float32 rounding of the exact ones."""
+    args = _inputs(n, H, L2, card)
+    args[3] = args[3] + 30.0
+    _, ws, stat = K.pge_fwd(*args, n, bf16, keep=True)
+    torch.cuda.synchronize()
+    ni, nj = -(-n // K.TI), -(-n // K.TJ)
+    z = ws.view(ni * nj, L2, K.TI, K.TJ, H).double()
+    rows = (torch.arange(ni * K.TI, device=card) < n).view(ni, 1, K.TI, 1)
+    cols = (torch.arange(nj * K.TJ, device=card) < n).view(1, nj, 1, K.TJ)
+    mask = (rows & cols).view(ni * nj, 1, K.TI, K.TJ, 1).double()
+    count = mask.sum((2, 3))
+    mean = (z * mask).sum((2, 3)) / count                  # [T, L2, H]
+    var = (((z - mean[:, :, None, None]) * mask) ** 2).sum((2, 3)) / count
+    assert float((var.sqrt() / mean.abs()).median()) < 0.1
+    L = L2 + 1
+    st = stat.view(ni * nj, K._stat_rows(L2), H).double()
+    got_mean, got_inv = st[:, 1:L], st[:, L + 1:2 * L]
+    inv = torch.rsqrt(var + K.EPS)
+    assert float(((got_mean - mean).abs() / mean.abs()).max()) < 2e-7
+    assert float(((got_inv - inv).abs() / inv).max()) < 1e-6

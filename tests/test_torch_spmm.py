@@ -164,6 +164,52 @@ def test_default_destination_tile_shrinks_for_small_matrices(n, td):
     assert torch.equal(SB.spmm_blocked_plain(layout, x), x)
 
 
+@pytest.mark.parametrize("d", [16, 40, 64, 128, 129, 256])
+def test_launch_plan_walks_the_entries_once_at_every_width(d):
+    """One walk of a destination tile's entries covers every column up to
+    128 float4 columns and 160 floats (the evaluator's [X | 1] at d = 129
+    included); wider float4 rows (d = 256) take slabs of 128, one walk a
+    slab.  The lanes cover every column; at d ≤ 64 several entries go to a
+    warp at once so most of its lanes work (d = 40: 3 entries of 10
+    float4s, 30 lanes)."""
+    vec = d % 4 == 0
+    plan = SB.launch_plan(d, vec)
+    unit = 4 if vec else 1
+    slab = SB.SLAB if vec and d > SB.SLAB else d
+    assert plan["slab"] == slab and plan["n_slabs"] == -(-d // slab)
+    assert plan["lpr"] * plan["nv"] * unit >= slab
+    assert 1 <= plan["nv"] <= 5 and 1 <= plan["lpr"] <= 32
+    assert plan["busy"] >= 30
+    if d <= 64:
+        assert plan["nv"] == 1 and 32 // plan["lpr"] >= 2
+    # a staged tile of the slab's columns fits at the default ts = 64
+    assert SB.launch_plan(d, vec, staged=True) == plan
+
+
+def test_launch_plan_keeps_slabs_where_a_staged_tile_needs_them():
+    """A staged source tile of ts rows holds the slab's columns: at
+    ts = 448 only 128 float columns fit a block's shared memory, so a row
+    of 150 floats walks twice there; without staged blocks, or at 129
+    floats, it walks once."""
+    staged = SB.launch_plan(150, False, ts=448, staged=True)
+    assert (staged["slab"], staged["n_slabs"]) == (128, 2)
+    assert SB.launch_plan(150, False, ts=448)["n_slabs"] == 1
+    assert SB.launch_plan(129, False, ts=448, staged=True)["n_slabs"] == 1
+
+
+@pytest.mark.parametrize("d,walks", [(40, 1), (64, 1), (128, 1), (129, 1),
+                                     (192, 2), (256, 2)])
+def test_launch_plan_cuts_wide_float4_rows_of_an_x_beyond_l2(d, walks):
+    """Float4 rows wider than 128 columns take slabs of 128, whatever the
+    matrix: on the arxiv twin, whose x at d = 256 is over three times L2,
+    a slab of 128 columns gathers from half the bytes and two slabs beat
+    one walk.  Rows of floats (d = 129) keep one walk."""
+    vec = d % 4 == 0
+    plan = SB.launch_plan(d, vec)
+    assert plan["n_slabs"] == walks
+    assert plan["slab"] == (SB.SLAB if walks > 1 else d)
+
+
 def test_unweighted_adjacency_means_ones():
     ei = np.array([[0, 0, 2, 3], [1, 2, 0, 3]])
     adj = G.from_edge_index(ei, 4, device="cpu")

@@ -5,20 +5,23 @@ Run from the root of a checkout on a machine with a card:
 ``python3 tools/pge_kernel_phases.py``.  Two measurements, at the slice's
 shapes (n = 1354, H = 256) with bf16 matmul operands unless noted:
 
-1. ``layers``: forward and backward ms of the real kernels for 0, 1 and 2
-   hidden layers, in both precisions; the step from 0 to 1 is the cost of
-   one hidden layer.
+1. ``layers``: forward (the launch that keeps the workspace, and the one
+   without) and backward ms of the real kernels for 0, 1 and 2 hidden
+   layers, in both precisions; the step from 0 to 1 is the cost of one
+   hidden layer.
 2. ``phases``: diagnostic builds of the same sources under
    ``build/phases/`` (their results are wrong; only their time counts).
    ``csrc/pge_kernels.cuh`` carries the guards: with ``-DPGE_PHASES`` a
-   runtime mask skips one phase at a time: in the forward the hidden
-   matmul, the statistics and the output dot; in the backward the
+   runtime mask skips one phase at a time: in the forward the products'
+   ``wgmma``, the statistics epilogue, the store of z and the output dot
+   (the top layer's second product); in the backward the
    reduction pass, the dW product, the dX product, the layer-0 epilogue
    of the dX product (``l0_tile_sums``) and ``finish0``, and in every step
    of the two products the fetch, the convert-and-store or the
    ``wgmma`` part.  ``-DPGE_CONST=bits`` builds variants
    that replace an operand's staging arithmetic and loads by a constant:
-   the forward matmul's A or B operand, the backward's dz (the B operand
+   the forward matmul's A operand (X) or its W, the backward's dz (the B
+   operand
    of dW and the A operand of dX; also its loads or its arithmetic alone)
    and the dW product's X operand.  The drop in time when a phase is
    skipped, or an operand is constant, is its cost.
@@ -49,8 +52,11 @@ CSRC = os.path.join(HERE, "graphslim_tpu_torch", "csrc")
 OUT = os.path.join(HERE, "build", "phases")
 
 # Bits of the runtime skip mask (enum Skip of csrc/pge_kernels.cuh).
-MASKS = {"all phases": 0, "skip hidden matmul": 1,
-         "skip layer-1 statistics": 2, "skip output dot": 4,
+MASKS = {"all phases": 0, "forward: skip wgmma": 1,
+         "forward: skip statistics epilogue": 2,
+         "forward: skip output dot (second product)": 4,
+         "forward: skip store of z": 2048,
+         "forward: only the statistics pass's staging": 1 + 2 + 4 + 2048,
          "skip dW product": 8, "skip dX product": 16,
          "skip reduction pass": 32, "skip layer-0 epilogue": 64,
          "skip finish0": 128, "backward: only reduction pass": 8 + 16 + 128,
@@ -89,37 +95,43 @@ def build_variant(variant: str) -> str:
     if res.returncode != 0:
         raise SystemExit(f"pge_kernel_phases: nvcc failed for {variant}:\n"
                          + res.stderr[-3000:])
-    # registers and spills of the bf16 backward kernel
+    # registers and spills of the bf16 kernels (the forward at H = 256)
     lines = res.stderr.splitlines()
     for i, ln in enumerate(lines):
-        if "pge_bwd_kernelILb1" in ln and "Compiling" in ln:
-            print(f"ptxas {variant} bwd bf16: "
-                  + " | ".join(x.strip() for x in lines[i + 1:i + 3]),
-                  flush=True)
+        for key, what in (("pge_bwd_kernelILb1", "bwd"),
+                          ("pge_fwd_kernelILi4", "fwd")):
+            if key in ln and "Compiling" in ln:
+                print(f"ptxas {variant} {what} bf16: "
+                      + " | ".join(x.strip() for x in lines[i + 1:i + 3]),
+                      flush=True)
     return so
 
 
 def load(so: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(so)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.pge_fwd.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
+    lib.pge_fwd.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
     lib.pge_fwd.restype = i32
     lib.pge_bwd.argtypes = [ptr] * 18 + [i32] * 5 + [ptr]
     lib.pge_bwd.restype = i32
     lib.pge_blocks_per_sm.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
     lib.pge_blocks_per_sm.restype = i32
+    lib.pge_fwd_smem_bytes.argtypes = [i32]
+    lib.pge_fwd_smem_bytes.restype = i32
     lib.pge_set_skip.argtypes = [i32]
     lib.pge_set_skip.restype = i32
     return lib
 
 
 def times(L2: int, bf16: bool) -> tuple:
+    """(forward keeping the workspace, forward without, backward) ms."""
     args = CS.pge_inputs(N, H, L2, seed=1, beta_shift=0.0)
     g = torch.randn(N, N, device="cuda")
     fwd = CS.timed_ms(lambda: K.pge_fwd(*args, N, bf16), 5)
+    bare = CS.timed_ms(lambda: K.pge_fwd(*args, N, bf16, keep=False), 5)
     _, ws, stat = K.pge_fwd(*args, N, bf16)
     bwd = CS.timed_ms(lambda: K.pge_bwd(*args, g, ws, stat, N, bf16), 3)
-    return fwd, bwd
+    return fwd, bare, bwd
 
 
 def main() -> None:
@@ -141,9 +153,9 @@ def main() -> None:
     K.build()
     for L2 in (0, 1, 2):
         for bf16 in (False, True):
-            f, b = times(L2, bf16)
-            print(f"layers L2={L2} bf16={bf16}: fwd {f:.3f} ms, bwd "
-                  f"{b:.3f} ms", flush=True)
+            f, f0, b = times(L2, bf16)
+            print(f"layers L2={L2} bf16={bf16}: fwd {f:.3f} ms (no-grad "
+                  f"{f0:.3f}), bwd {b:.3f} ms", flush=True)
     with ThreadPoolExecutor(len(VARIANTS)) as ex:
         libs = dict(zip(VARIANTS, ex.map(build_variant, VARIANTS)))
     for variant, so in libs.items():
@@ -153,9 +165,9 @@ def main() -> None:
         for name, mask in masks.items():
             if K._LIB.pge_set_skip(mask) != 0:
                 raise SystemExit("pge_kernel_phases: pge_set_skip failed")
-            f, b = times(1, True)
-            print(f"phases {variant} {name}: fwd {f:.3f} ms, bwd "
-                  f"{b:.3f} ms", flush=True)
+            f, f0, b = times(1, True)
+            print(f"phases {variant} {name}: fwd {f:.3f} ms (no-grad "
+                  f"{f0:.3f}), bwd {b:.3f} ms", flush=True)
     K._LIB = None
     K._PER_SM.clear()
 
