@@ -44,11 +44,28 @@ line of output each, any failed check raises (non-zero exit):
    trains (validation ≥ 0.60; logits through the kernel and through its
    plain version agree) and a torch.profiler breakdown of one epoch; then
    the blocked SpMM against its plain version, a float64 product and
-   ``torch.sparse.mm`` on the subgraphs that kcenter and cent_p selected.
+   ``torch.sparse.mm`` on the subgraphs that kcenter and cent_p selected;
+9. the other condensation methods at full width on the twin, at their
+   ogbn-arxiv paper configs (``method_configs.py``) cut in depth, through
+   ``create_reducer(...).reduce()`` and the default evaluator (GCN, 3 seeds
+   × 300 epochs).  ``doscond``, ``gcondx`` and ``gcdm`` run 7 epochs with
+   a checkpoint at epoch 1: epoch 0 warms up, epochs 1-5 give the outer
+   steps/s, epoch 6 is profiled.  ``doscond``: one PGE forward keeping the
+   workspace and one backward an outer step, no-grad forwards only at
+   checkpoints and the end; a torch.profiler split of one epoch; then
+   ``--resume`` from the saved state, which must start at epoch 2 with the
+   saved state bit for bit.  ``gcondx``: no PGE launch.  ``gcdm``: one
+   blocked-SpMM launch at d = 256 an outer step and none at d = 40; the
+   SpMM's share of an epoch's device time.  ``sgdd``: 1 epoch of 20 outer
+   steps with IGNR at n = 1354, the rate over steps 2-19 without the
+   profiled step 11 and step 12; peak device memory, the ``eigh``, its
+   backward and ``eigvalsh`` of step 11.
 
 Phases 6 and 7 run before phase 4.  The line before the last is the
-``kernels`` JSON; the last line is ``{"ok": true, "device": {...}}``.
-``--only kernels`` stops after the kernel comparisons (phases 2, 3, 6, 7).
+``kernels`` JSON (launches: phases 4, 8 and 9); the last line is
+``{"ok": true, "device": {...}}``.  ``--only kernels`` stops after the
+kernel comparisons (phases 2, 3, 6, 7); ``--only condense`` runs phase 9
+alone (after the build) and prints no result.
 Without a CUDA card, or outside a checkout, it exits non-zero and prints
 no result.
 """
@@ -412,6 +429,56 @@ class Counter:
         return self.fn(*a, **kw)
 
 
+class EpochTimer:
+    """Wraps a reducer's ``_epoch``: wall seconds of each epoch, the PGE
+    and SpMM launches inside it, and a torch.profiler breakdown of the
+    epoch numbered ``profile_at``."""
+
+    def __init__(self, eng, K, SB, profile_at=None):
+        self.eng, self.K, self.SB = eng, K, SB
+        self.fn, self.profile_at = eng._epoch, profile_at
+        self.seconds, self.pge, self.spmm, self.kernels = [], [], [], None
+        self.first_state = None
+        eng._epoch = self
+
+    def __call__(self, *a, **kw):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        if self.first_state is None:     # copies: epochs update in place
+            from graphslim_tpu_torch.utils import tree_leaves
+
+            self.first_state = [
+                x.detach().clone() if isinstance(x, torch.Tensor) else x
+                for x in tree_leaves(a)] + [self.eng.gen.get_state()]
+        torch.cuda.synchronize()
+        pge0, spmm0 = dict(self.K.LAUNCHES), dict(self.SB.LAUNCHES_BY_WIDTH)
+        t0 = time.perf_counter()
+        if len(self.seconds) == self.profile_at:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                out = self.fn(*a, **kw)
+                torch.cuda.synchronize()
+            self.kernels = device_time_by_kernel(prof)
+        else:
+            out = self.fn(*a, **kw)
+            torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - t0)
+        self.pge.append({k: v - pge0[k] for k, v in self.K.LAUNCHES.items()})
+        self.spmm.append({d: c - spmm0.get(d, 0) for d, c in
+                          self.SB.LAUNCHES_BY_WIDTH.items()
+                          if c > spmm0.get(d, 0)})
+        return out
+
+    def rate(self, steps_per_epoch: int) -> tuple:
+        """(outer steps/s, mean wall ms of an epoch) over the ``TIMED``
+        epochs after the warm-up epoch 0."""
+        secs = self.seconds[1:1 + TIMED]
+        if len(secs) != TIMED:
+            fail(f"{len(self.seconds)} epochs timed, {1 + TIMED} needed")
+        return steps_per_epoch * TIMED / sum(secs), 1e3 * sum(secs) / TIMED
+
+
 def device_time_by_kernel(prof) -> dict:
     """Device milliseconds per kernel name from a torch.profiler run."""
     from torch.autograd import DeviceType
@@ -427,12 +494,11 @@ def device_time_by_kernel(prof) -> dict:
     return out
 
 
-def run_gcond(K, ds, save_path: str) -> tuple:
+def run_gcond(K, SB, ds, save_path: str) -> tuple:
     """GCond through create_reducer(...).reduce(): epoch 0 warms up,
     epoch 1 is timed (then the checkpoint evaluation), epoch 2 runs under
     torch.profiler for the device-time breakdown."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from graphslim_tpu_torch.config import Args, finalize
     from graphslim_tpu_torch.reduce import create_reducer
@@ -449,28 +515,7 @@ def run_gcond(K, ds, save_path: str) -> tuple:
     steps = Counter(eng, "match_loss_total")
     inference = Counter(eng, "inference_adj")
     inner = Counter(eng, "inner_adj")
-    epoch_s = []
-    profiled = {}
-    epoch_fn = eng._epoch
-
-    def timed_epoch(*a, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if len(epoch_s) < 2:
-            out = epoch_fn(*a, **kw)
-            torch.cuda.synchronize()
-        else:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                out = epoch_fn(*a, **kw)
-                torch.cuda.synchronize()
-            profiled["kernels"] = device_time_by_kernel(prof)
-        epoch_s.append(time.perf_counter() - t0)
-        if len(epoch_s) == 3:
-            profiled["wall_ms"] = epoch_s[-1] * 1e3
-        return out
-
-    eng._epoch = timed_epoch
+    timer = EpochTimer(eng, K, SB, profile_at=2)
     K.reset_launches()
     t0 = time.perf_counter()
     red = eng.reduce(ds)
@@ -499,14 +544,14 @@ def run_gcond(K, ds, save_path: str) -> tuple:
     if feat.shape != (1354, 128) or not torch.isfinite(feat).all() or \
             not torch.isfinite(red.adj).all():
         fail("condensed graph not finite or of the wrong shape")
-    sps = args.outer_loop / epoch_s[1]
+    sps = args.outer_loop / timer.seconds[1]
     log(f"gcond ogbn-arxiv: n_syn {eng.n_syn}, {outer} outer steps, "
         f"{sps:.3f} outer steps/s (timed epoch 1; epochs "
-        f"{[round(s, 3) for s in epoch_s]} s, reduce() {wall:.1f} s), "
+        f"{[round(s, 3) for s in timer.seconds]} s, reduce() {wall:.1f} s), "
         f"epoch losses {[round(x, 5) for x in losses]}, launches "
         f"{launches} (fwd = {outer} keeping the workspace + {outer} "
         f"inner_adj + {extra} inference_adj without)")
-    kern = profiled["kernels"]
+    kern = timer.kernels
     busy = sum(kern.values())
     if not busy > 0:
         fail("torch.profiler recorded no device time")
@@ -518,10 +563,10 @@ def run_gcond(K, ds, save_path: str) -> tuple:
     # work: device busy of the profiled epoch 2 over the wall time of the
     # unprofiled epoch 1
     log(f"gcond profile (epoch 2, {args.outer_loop} outer steps, "
-        f"torch.profiler): wall {profiled['wall_ms']:.1f} ms under the "
+        f"torch.profiler): wall {timer.seconds[2] * 1e3:.1f} ms under the "
         f"profiler, device busy {busy:.1f} ms (idle share estimated as "
         f"1 - busy(epoch 2) / wall(unprofiled epoch 1): "
-        f"{1 - busy / (epoch_s[1] * 1e3):.3f}); "
+        f"{1 - busy / (timer.seconds[1] * 1e3):.3f}); "
         f"pge_fwd {pge['pge_fwd']:.1f} ms, pge_bwd {pge['pge_bwd']:.1f} ms "
         f"({(pge['pge_fwd'] + pge['pge_bwd']) / busy:.3f} of busy); top: "
         + "; ".join(f"{k[:48]} {v:.1f} ms" for k, v in top))
@@ -995,9 +1040,250 @@ def run_coresets(SB, SG, G) -> tuple:
     return launches, subgraphs
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: DosCond, GCondX, GCDM and SGDD on the arxiv twin
+# ---------------------------------------------------------------------------
+
+# Phase 9's DosCond, GCondX and GCDM runs: epoch 0 warms up, the TIMED
+# epochs after it give the rate, the last is profiled.
+TIMED = 5
+EPOCHS = TIMED + 2
+
+
+def condense_args(method: str, save_path: str, epochs: int,
+                  checkpoints: tuple, **kw):
+    """The method's ogbn-arxiv paper config (``method_configs.py``), cut
+    in depth only: ``epochs`` epochs, one quick training at each
+    checkpoint; evaluation 3 seeds × 300 epochs."""
+    from graphslim_tpu_torch.config import Args, finalize
+
+    args = finalize(Args(dataset="ogbn-arxiv", method=method,
+                         init="random", epochs=epochs, save_path=save_path,
+                         run_inter_eval=1, run_eval=3, eval_epochs=300,
+                         device="cuda", **kw),
+                    explicit={"epochs", "run_inter_eval", "run_eval",
+                              "eval_epochs", *kw})
+    return args.replace(checkpoints=checkpoints)
+
+
+def evaluate_result(ds, args, red, eng) -> tuple:
+    """The default evaluator on a condensed graph; fails on a non-finite
+    epoch loss or accuracy."""
+    import torch
+
+    from graphslim_tpu_torch.eval import Evaluator
+
+    losses = [float(x) for x in eng.epoch_loss_sums]
+    if not all(math.isfinite(x) for x in losses) or \
+            not torch.isfinite(red.feat).all():
+        fail(f"{args.method}: non-finite epoch loss {losses} or features")
+    t0 = time.perf_counter()
+    (acc, std), _ = Evaluator(ds, args).evaluate(red, args.eval_model)
+    if not (math.isfinite(acc) and math.isfinite(std)):
+        fail(f"{args.method}: accuracy {acc} ± {std}")
+    return acc, std, time.perf_counter() - t0, losses
+
+
+def run_condensers(K, SB, ds, tmp: str) -> dict:
+    """DosCond (with a resume), GCondX, GCDM and SGDD at full width on the
+    arxiv twin through create_reducer(...).reduce(), each result through
+    the default evaluator; returns each kernel's launches over the
+    phase."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from graphslim_tpu_torch.reduce import create_reducer
+
+    K.reset_launches()
+    SB.reset_launches()
+
+    def pge_since(before: dict) -> dict:
+        return {k: v - before[k] for k, v in K.LAUNCHES.items()}
+
+    # --- DosCond: 7 epochs, a checkpoint at epoch 1, then a resume -----
+    # (epoch 0 warms up, epochs 1-5 give the rate, epoch 6 is profiled)
+    args = condense_args("doscond", tmp, EPOCHS, (1,))
+    eng = create_reducer("doscond", ds, args)
+    if (eng.n_syn, args.hidden, eng.pge.cfg.nhid, eng.args.inner_loop) != \
+            (1354, 256, 256, 0):
+        fail(f"doscond: not the paper config at full width (n_syn "
+             f"{eng.n_syn}, hidden {args.hidden}, PGE nhid "
+             f"{eng.pge.cfg.nhid}, inner_loop {eng.args.inner_loop})")
+    inference = Counter(eng, "inference_adj")
+    timer = EpochTimer(eng, K, SB, profile_at=EPOCHS - 1)
+    before = dict(K.LAUNCHES)
+    red = eng.reduce(ds)
+    torch.cuda.synchronize()
+    launches = pge_since(before)
+    steps = args.epochs * args.outer_loop
+    if (launches["pge_fwd_ws"], launches["pge_bwd"],
+            launches["pge_fwd_nows"]) != (steps, steps, inference.n):
+        fail(f"doscond: PGE launches {launches}; expected {steps} forward "
+             f"keeping the workspace, {steps} backward, {inference.n} "
+             f"without (checkpoints and the final adjacency)")
+    if any(e["pge_fwd_nows"] for e in timer.pge):
+        fail(f"doscond: a no-grad PGE forward inside an epoch {timer.pge}")
+    kern = timer.kernels
+    busy = sum(kern.values())
+    if not busy > 0:
+        fail("doscond: torch.profiler recorded no device time")
+    fwd = sum(v for k, v in kern.items() if "pge::pge_fwd_kernel" in k)
+    bwd = sum(v for k, v in kern.items() if "pge::pge_bwd_kernel" in k)
+    acc, std, t_eval, losses = evaluate_result(ds, args, red, eng)
+    rate, wall = timer.rate(args.outer_loop)
+    log(f"doscond ogbn-arxiv (SGC, ours, lr_adj 0.02, lr_feat 0.01, outer "
+        f"5, inner 0): n_syn {eng.n_syn}, {steps} outer steps, "
+        f"{rate:.3f} outer steps/s (epochs 1-{EPOCHS - 2}, "
+        f"{TIMED * args.outer_loop} steps; epochs "
+        f"{[round(x, 3) for x in timer.seconds]} s), PGE "
+        f"launches {launches} ({inference.n} inference_adj), epoch losses "
+        f"{[round(x, 5) for x in losses]}; profiled epoch {EPOCHS - 1}: "
+        f"device busy {busy:.2f} ms (idle share estimated as 1 - busy / "
+        f"mean wall of the timed epochs: {1 - busy / wall:.3f}), pge_fwd "
+        f"{fwd:.2f} ms, pge_bwd {bwd:.2f} ms, the rest "
+        f"{busy - fwd - bwd:.2f} ms; evaluate GCN 3 seeds x 300 "
+        f"epochs {acc:.4f} ± {std:.4f} ({t_eval:.1f} s)")
+
+    # the resume, from the state saved at the checkpoint (epoch 1 done)
+    with np.load(eng.state_path()) as blob:
+        saved = {k: blob[k] for k in blob.files}
+    resumed = create_reducer("doscond", ds, args.replace(resume=True))
+    rtimer = EpochTimer(resumed, K, SB)
+    resumed.reduce(ds)
+    torch.cuda.synchronize()
+    if int(saved["__epoch__"]) != 2 or \
+            len(rtimer.seconds) != args.epochs - 2:
+        fail(f"doscond resume: saved epoch {int(saved['__epoch__'])}, "
+             f"{len(rtimer.seconds)} epochs run (expected epochs 2-"
+             f"{args.epochs - 1})")
+    state = rtimer.first_state
+    host = [x.cpu().numpy() if isinstance(x, torch.Tensor)
+            else np.asarray(x) for x in state]
+    mismatch = [i for i, x in enumerate(host)
+                if not np.array_equal(x, saved[f"leaf_{i}"])]
+    if mismatch or len(state) != int(saved["__n_leaves__"]):
+        fail(f"doscond resume: leaves {mismatch} of the resumed state "
+             f"differ from the saved ones")
+    log(f"doscond resume: started at epoch 2 ({len(rtimer.seconds)} "
+        f"epochs run, {sum(rtimer.seconds):.3f} s); the {len(state)} "
+        f"leaves of its first "
+        f"state (features, PGE parameters, both Adam states, the "
+        f"generator's state) equal the saved ones bit for bit")
+    del eng, resumed, red
+
+    # --- GCondX: 7 epochs ----------------------------------------------
+    args = condense_args("gcondx", tmp, EPOCHS, (1,))
+    eng = create_reducer("gcondx", ds, args)
+    timer = EpochTimer(eng, K, SB)
+    before = dict(K.LAUNCHES)
+    red = eng.reduce(ds)
+    if any(pge_since(before).values()) or eng.pge is not None:
+        fail(f"gcondx launched the PGE: {pge_since(before)}")
+    acc, std, t_eval, losses = evaluate_result(ds, args, red, eng)
+    rate, _ = timer.rate(args.outer_loop)
+    log(f"gcondx ogbn-arxiv (SGC ntrans 2, mse, lr_feat 0.1, outer 5, "
+        f"inner {args.inner_loop}): {args.epochs * args.outer_loop} outer "
+        f"steps, {rate:.3f} outer steps/s (epochs 1-{EPOCHS - 2}; epochs "
+        f"{[round(x, 3) for x in timer.seconds]} s), PGE launches 0, "
+        f"epoch losses {[round(x, 5) for x in losses]}; evaluate GCN "
+        f"{acc:.4f} ± {std:.4f} ({t_eval:.1f} s)")
+    del eng, red
+
+    # --- GCDM: 7 epochs -------------------------------------------------
+    args = condense_args("gcdm", tmp, EPOCHS, (1,), hidden=256)
+    eng = create_reducer("gcdm", ds, args)
+    eng.adj_norm_full.blocked()
+    timer = EpochTimer(eng, K, SB, profile_at=EPOCHS - 1)
+    before = SB.LAUNCHES["spmm_blocked"]
+    red = eng.reduce(ds)
+    in_reduce = SB.LAUNCHES["spmm_blocked"] - before
+    want = {args.hidden: args.outer_loop}
+    if any(e != want for e in timer.spmm) or \
+            (args.condense_model, args.nlayers) != ("GCN", 2):
+        fail(f"gcdm: SpMM launches by width per epoch {timer.spmm}, "
+             f"expected {want} (one at d = {args.hidden} an outer step)")
+    kern = timer.kernels
+    busy = sum(kern.values())
+    if not busy > 0:
+        fail("gcdm: torch.profiler recorded no device time")
+    spmm_ms = sum(v for k, v in kern.items() if "spmm_blocked_kernel" in k)
+    acc, std, t_eval, losses = evaluate_result(ds, args, red, eng)
+    rate, wall = timer.rate(args.outer_loop)
+    log(f"gcdm ogbn-arxiv (GCN, l1, lr_feat 0.01, outer 5, inner 1, hidden "
+        f"256): {args.epochs * args.outer_loop} outer steps, "
+        f"{rate:.3f} outer steps/s (epochs 1-{EPOCHS - 2}, "
+        f"{TIMED * args.outer_loop} steps; epochs "
+        f"{[round(x, 3) for x in timer.seconds]} s), SpMM "
+        f"launches by width an epoch {timer.spmm[0]} ({in_reduce} in "
+        f"reduce() with the checkpoint's evaluation), epoch losses "
+        f"{[round(x, 3) for x in losses]}; profiled epoch {EPOCHS - 1}: "
+        f"device busy {busy:.2f} ms (idle share estimated as 1 - busy / "
+        f"mean wall of the timed epochs: {1 - busy / wall:.3f}), blocked "
+        f"SpMM {spmm_ms:.2f} ms ({spmm_ms / busy:.3f} of busy); evaluate "
+        f"GCN {acc:.4f} ± {std:.4f} ({t_eval:.1f} s)")
+    del eng, red
+    torch.cuda.empty_cache()
+
+    # --- SGDD: 1 epoch of 20 outer steps, step 11 profiled --------------
+    torch.cuda.reset_peak_memory_stats()
+    args = condense_args("sgdd", tmp, 1, ())
+    eng = create_reducer("sgdd", ds, args)
+    if (eng.n_syn, eng.pge.cfg.mx_size, args.opt_scale, args.inner_loop,
+            args.outer_loop) != (1354, 1000, 1e-12, 3, 20):
+        fail(f"sgdd: not the paper config (n_syn {eng.n_syn}, mx_size "
+             f"{eng.pge.cfg.mx_size}, opt_scale {args.opt_scale})")
+    timer = EpochTimer(eng, K, SB)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    gen_fwd, marks = eng.generator_forward, []
+
+    def generator_forward(*a, **kw):     # called once at each step's start
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        if len(marks) in (11, 12):
+            (prof.start if len(marks) == 11 else prof.stop)()
+        return gen_fwd(*a, **kw)
+
+    eng.generator_forward = generator_forward
+    red = eng.reduce(ds)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if len(marks) != args.outer_loop:
+        fail(f"sgdd: {len(marks)} outer steps, expected {args.outer_loop}")
+    # steps 2..19 from one step's start to the next, less step 11 (under
+    # the profiler) and step 12 (which stops it)
+    steps = [marks[k] - marks[k - 1] for k in range(2, args.outer_loop)
+             if k not in (11, 12)]
+    linalg = {}
+    for e in prof.key_averages():
+        key = e.key.lower()
+        if any(w in key for w in ("svd", "eig", "sympinv")) and \
+                (key.startswith(("aten::", "autograd::"))
+                 or "sympinv" in key):
+            dev = getattr(e, "device_time_total", None)
+            dev = e.cuda_time_total if dev is None else dev
+            linalg[e.key] = (e.cpu_time_total / 1e3, dev / 1e3, e.count)
+    acc, std, t_eval, losses = evaluate_result(ds, args, red, eng)
+    log(f"sgdd ogbn-arxiv (SGC ntrans 2, ours, outer 20, inner 3, mx_size "
+        f"1000, opt_scale 1e-12; IGNR n {eng.n_syn}): "
+        f"{len(steps) / sum(steps):.3f} outer steps/s (steps 2-19 but 11 "
+        f"and 12, {1e3 * sum(steps) / len(steps):.1f} ms a step; the "
+        f"epoch, with step 1's warm-up and the profiled step, "
+        f"{timer.seconds[0]:.2f} s), peak device memory {peak:.2f} GiB, "
+        f"epoch loss {losses}; step 11 under the profiler "
+        f"{1e3 * (marks[11] - marks[10]):.1f} ms, its decomposition ops "
+        f"(host ms / device ms / calls): "
+        + "; ".join(f"{k} {c:.1f} / {d:.1f} / {n}"
+                    for k, (c, d, n) in sorted(linalg.items()))
+        + f"; evaluate GCN {acc:.4f} ± {std:.4f} ({t_eval:.1f} s)")
+    return {"pge_fwd": K.LAUNCHES["pge_fwd_ws"] + K.LAUNCHES["pge_fwd_nows"],
+            "pge_bwd": K.LAUNCHES["pge_bwd"],
+            "spmm_blocked": SB.LAUNCHES["spmm_blocked"]}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=["kernels"], default=None)
+    ap.add_argument("--only", choices=["kernels", "condense"], default=None)
     opts = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "graphslim_tpu_torch")):
         fail("graphslim_tpu_torch/ not found beside chip_smoke.py")
@@ -1034,11 +1320,6 @@ def main() -> None:
             + " | ".join(report))
     log(f"build: {len(B.LIBRARIES)} libraries in parallel, {build_s:.1f} s")
 
-    # --- phases 2-3 ------------------------------------------------------
-    stats: dict = {}
-    compare_kernels(K, stats)
-
-    # --- phases 6-7 ------------------------------------------------------
     from graphslim_tpu_torch.config import Args, finalize
     from graphslim_tpu_torch.data import load, read_npz
     from graphslim_tpu_torch.eval import Evaluator
@@ -1047,6 +1328,16 @@ def main() -> None:
     ds = load("ogbn-arxiv", seed=0, device="cuda")
     log(f"load ogbn-arxiv twin: {ds.n_nodes} nodes, {ds.adj.nnz} edges, "
         f"{time.perf_counter() - t0:.1f} s")
+    if opts.only == "condense":
+        with tempfile.TemporaryDirectory() as tmp:
+            run_condensers(K, SB, ds, tmp)
+        return
+
+    # --- phases 2-3 ------------------------------------------------------
+    stats: dict = {}
+    compare_kernels(K, stats)
+
+    # --- phases 6-7 ------------------------------------------------------
     probe_gather(SG, stats, ds)
     compare_spmm_small(SB, G)
     compare_spmm_arxiv(SB, ds, stats)
@@ -1055,7 +1346,7 @@ def main() -> None:
 
     # --- phase 4 ---------------------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
-        red, launches = run_gcond(K, ds, tmp)
+        red, launches = run_gcond(K, SB, ds, tmp)
         saved = os.path.join(tmp, "reduced_graph", "gcond",
                              "ogbn-arxiv_0.01_1.npz")
         if not os.path.exists(saved):
@@ -1086,23 +1377,30 @@ def main() -> None:
     core, subgraphs = run_coresets(SB, SG, G)
     compare_spmm_subgraphs(SB, G, subgraphs)
 
+    # --- phase 9 ---------------------------------------------------------
+    del subgraphs
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        cond = run_condensers(K, SB, ds, tmp)
+
     src = "graphslim_tpu_torch/csrc/"
     kernels = [
         # ms: the launch kind that keeps the workspace (syn_adj_norm);
         # ms_nograd: the kind without it (inner_adj, inference_adj)
         dict(name="pge_fwd", route="cuda", source=src + "pge_kernels.cuh",
              replaces="graphslim_tpu/kernels/pallas_pge.py:74",
-             launches=launches["pge_fwd"], library_ms=None,
-             **stats["pge_fwd"]),
+             launches=launches["pge_fwd"] + cond["pge_fwd"],
+             library_ms=None, **stats["pge_fwd"]),
         dict(name="pge_bwd", route="cuda", source=src + "pge_kernels.cuh",
              replaces="graphslim_tpu/kernels/pallas_pge.py:165",
-             launches=launches["pge_bwd"], library_ms=None,
-             **stats["pge_bwd"]),
+             launches=launches["pge_bwd"] + cond["pge_bwd"],
+             library_ms=None, **stats["pge_bwd"]),
         # timed at the hidden width, where the coreset path spends most
         dict(name="spmm_blocked", route="cuda",
              source=src + "spmm_blocked.cu",
              replaces="graphslim_tpu/kernels/pallas_spmm_blocked.py:198",
-             launches=core["spmm_blocked"], **stats["spmm_blocked_d256"]),
+             launches=core["spmm_blocked"] + cond["spmm_blocked"],
+             **stats["spmm_blocked_d256"]),
         dict(name="smem_gather", route="cuda",
              source=src + "smem_gather.cu",
              replaces="benchmark/probe_spmm.py:82",

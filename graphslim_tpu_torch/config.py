@@ -54,16 +54,20 @@ class Args:
     init: str = "random"
     alpha: float = 0.1
     activation: str = "relu"
+    # SGDD (IGNR generator, spectral-OT regularizer)
+    mx_size: int = 100
+    opt_scale: float = 1e-11
+    ep_ratio: float = 0.5
     # --- evaluation -----------------------------------------------------
     run_eval: int = 10
     run_inter_eval: int = 3
     eval_interval: int = 100
     eval_epochs: int = 300
     eval_model: str = "GCN"
+    resume: bool = False    # resume condensation from its last train state
     # --- not ported yet (raise when asked for) --------------------------
     dist_devices: int = 0
     profile: bool = False
-    resume: bool = False
     wandb: bool = False
     # --- derived (filled by finalize) -----------------------------------
     metric: str = "accuracy"

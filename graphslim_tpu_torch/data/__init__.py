@@ -2,5 +2,5 @@
 
 from graphslim_tpu_torch.data.loader import load, DATASET_SPECS, DatasetSpec
 from graphslim_tpu_torch.data.artifacts import (
-    save_reduced, read_npz, sparsify,
+    save_reduced, read_npz, sparsify, load_reduced, get_syn_data,
 )

@@ -74,6 +74,25 @@ def read_npz(path: str, device=None) -> G.Reduced:
     return G.Reduced(feat=feat, adj=adj, labels=labels)
 
 
+def load_reduced(save_path: str, method: str, dataset: str, r: float,
+                 seed: int, device=None) -> G.Reduced:
+    """The triple that :func:`save_reduced` (of either package) wrote for
+    this run, on the CUDA card unless ``device`` says otherwise."""
+    path = _triple_path(save_path, method, dataset, r, seed)
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no reduced graph at {path}")
+    return read_npz(path, device=device)
+
+
+def get_syn_data(save_path: str, method: str, dataset: str, r: float,
+                 seed: int, model_type: str = "GCN", threshold: float = 0.0,
+                 device=None) -> G.Reduced:
+    """Load and sparsify for ``model_type`` (reference
+    ``dataset/utils.py:261-296``)."""
+    reduced = load_reduced(save_path, method, dataset, r, seed, device)
+    return sparsify(reduced, model_type, method, threshold)
+
+
 def sparsify(reduced: G.Reduced, model_type: str, method: str,
              threshold: float = 0.0) -> G.Reduced:
     """Model-aware post-sparsification of a condensed dense adjacency:

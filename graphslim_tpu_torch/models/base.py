@@ -90,3 +90,15 @@ class GNNModel:
               gen: Optional[torch.Generator] = None) -> torch.Tensor:
         out = self._forward(params, x, adj, training=training, gen=gen)
         return torch.log_softmax(out, dim=-1)
+
+    def n_layer_features(self) -> int:
+        """How many activations :meth:`layer_features` returns."""
+        return 1
+
+    def layer_features(self, params: dict, x: torch.Tensor, adj: Any,
+                       depth: Optional[int] = None) -> list:
+        """Per-layer activations (distribution matching, GCDM).  A model
+        with a stacked structure overrides this and computes only the
+        first ``depth`` layers (all when None); the default is the final
+        pre-softmax embedding alone."""
+        return [self._forward(params, x, adj, training=False, gen=None)]

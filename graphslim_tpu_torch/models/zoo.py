@@ -48,6 +48,25 @@ class GCN(GNNModel):
                 x = nn.dropout(gen, x, c.dropout, training)
         return x
 
+    def n_layer_features(self):
+        return len(_stack_dims(self.cfg, self.cfg.nlayers)) - 1
+
+    def layer_features(self, params, x, adj, depth=None):
+        """Each layer's output (the linear map, the aggregation, then BN
+        and ReLU below the top) for the first ``depth`` layers only."""
+        layers = params["layers"]
+        depth = len(layers) if depth is None else depth
+        feats = []
+        for i, p in enumerate(layers[:depth]):
+            x = nn.linear_apply(p, x)
+            x = layer_aggregate(adj, i, x)
+            if i != len(layers) - 1:
+                if self.cfg.with_bn:
+                    x = nn.bn_apply(params["bns"][i], x)
+                x = torch.relu(x)
+            feats.append(x)
+        return feats
+
 
 def _trans_stack_apply(params, c: ModelConfig, x, training, gen):
     layers = params["layers"]

@@ -10,6 +10,11 @@ graph (``create_graph=True``) for the nested gradient of the match loss.
 
 ``match_loss`` keeps the reference's ``ours`` metric exactly, including the
 exclusion of 1-D (bias) gradients.
+
+A subclass with ``with_structure = False`` (GCondX, DosCondX, GCDM) builds
+no PGE: its synthetic adjacency is the identity, passed as ``None`` (the
+models' ``aggregate`` then leaves ``x`` as it is).  ``generator_forward`` is
+the hook through which SGDD adds its generator's own loss.
 """
 
 from __future__ import annotations
@@ -101,6 +106,7 @@ class CondensationBase(Reducer):
     optimizers, checkpoint evaluation."""
 
     save_output = False
+    with_structure = True        # False → adj_syn = I (the ±X variants)
     sample_batch = 256
 
     def __init__(self, data: G.Dataset, args):
@@ -162,7 +168,8 @@ class CondensationBase(Reducer):
             ntrans=args.ntrans))
         self.fanouts = tuple(fanouts_for(args.nlayers, data.name))
         self.pge = PGE(PGEConfig.for_dataset(
-            self.d, self.n_syn, data.name, args.reduction_rate))
+            self.d, self.n_syn, data.name, args.reduction_rate)) \
+            if self.with_structure else None
         self.opt_feat = utils.Adam(args.lr_feat)
         self.opt_pge = utils.Adam(args.lr_adj)
         self.opt_model = utils.Adam(args.lr or 0.01)
@@ -229,16 +236,37 @@ class CondensationBase(Reducer):
                              self.args.dis_metric)
             return (self.coeffs * mls).sum()
 
-    def syn_adj_norm(self, pge_params: dict, feat_syn: torch.Tensor
-                     ) -> torch.Tensor:
+    @property
+    def adj_norm_full(self) -> G.SparseAdj:
+        """The full graph's normalized adjacency on the device (GCDM's real
+        embeddings); cached on the dataset with its blocked layout, so on
+        the card every product with it launches the blocked SpMM."""
+        return self.data.adj_norm()
+
+    def syn_adj_norm(self, pge_params: dict, feat_syn: torch.Tensor):
+        """Normalized synthetic adjacency; ``None`` (the identity, which
+        normalization leaves as it is) without structure."""
+        if not self.with_structure:
+            return None
         return G.normalize_adj_dense(self.pge.apply(pge_params, feat_syn))
 
+    def generator_forward(self, pge_params: dict, feat_syn: torch.Tensor):
+        """(normalized synthetic adjacency, the generator's own loss);
+        SGDD overrides it."""
+        return self.syn_adj_norm(pge_params, feat_syn), 0.0
+
     def inference_adj(self, pge_params: dict, feat_syn: torch.Tensor):
-        """Detached synthetic adjacency (inner loop and checkpoints)."""
+        """Detached synthetic adjacency (inner loop and checkpoints);
+        ``None`` (the identity) without structure."""
+        if not self.with_structure:
+            return None
         return self.pge.inference(pge_params, feat_syn)
 
     def inner_adj(self, pge_params: dict, feat_syn: torch.Tensor):
-        """Normalized detached adjacency for inner-loop model training."""
+        """Normalized detached adjacency for inner-loop model training;
+        ``None`` (the identity) without structure."""
+        if not self.with_structure:
+            return None
         return G.normalize_adj_dense(self.inference_adj(pge_params,
                                                         feat_syn))
 
@@ -253,7 +281,7 @@ class CondensationBase(Reducer):
         args = self.args
         reduced = G.Reduced(
             feat=feat_syn.detach().clone(),
-            adj=adj_syn.detach(),
+            adj=None if adj_syn is None else adj_syn.detach(),
             labels=self.labels_syn)
         ev = Evaluator(self.data, args)
         accs = []

@@ -20,13 +20,18 @@ _PORTED = {
     "cent_d": ("coreset", "CentD", None),
     "cent_p": ("coreset", "CentP", None),
     "gcond": ("gcond", "GCond", None),
+    "doscond": ("gcond", "DosCond", None),
+    "gcondx": ("gcond", "GCondX", None),
+    "doscondx": ("gcond", "DosCondX", None),
+    "gcdm": ("gcdm", "GCDM", None),
+    "gcdmx": ("gcdm", "GCDMX", None),
+    "sgdd": ("sgdd", "SGDD", None),
 }
 
 # name → ROADMAP.md queue-1 item that ports it
 _QUEUED = {
-    **{m: 5 for m in ("doscond", "gcondx", "doscondx")},
-    **{m: 9 for m in ("gcdm", "gcdmx", "sgdd", "msgc", "sfgc", "geom",
-                      "gcsntk", "simgc", "gdem", "gecc", "mirage")},
+    **{m: 9 for m in ("msgc", "sfgc", "geom", "gcsntk", "simgc", "gdem",
+                      "gecc", "mirage")},
     **{m: 10 for m in ("clustering", "averaging", "vng")},
     **{m: 11 for m in ("random_edge", "g_spar", "local_degree", "scan",
                        "spanning_forest", "rank_degree", "t_spanner",

@@ -2,8 +2,10 @@
 
 Counterpart of ``graphslim_tpu/train_all.py``.  Run as
 ``python -m graphslim_tpu_torch.train_all -D ogbn-arxiv -M gcond``
-(add ``--device cpu`` to run on the CPU).  The tracker, profiling, attack
-and distributed branches are not ported yet and raise when asked for.
+(add ``--device cpu`` to run on the CPU; ``--resume`` picks up the train
+state a condensation run saved at its last checkpoint).  The tracker,
+profiling, attack and distributed branches are not ported yet and raise
+when asked for.
 """
 
 from __future__ import annotations
@@ -26,12 +28,18 @@ _NOT_PORTED = {
 }
 
 
-def run(args: Args):
-    for field, where in _NOT_PORTED.items():
+def refuse_unported(args: Args, fields=tuple(_NOT_PORTED)) -> None:
+    """Raise for any of ``fields`` that asks for a branch not ported."""
+    for field in fields:
         value = getattr(args, field)
         if value and not (field == "dist_devices" and value <= 1):
-            raise NotImplementedError(f"--{field} needs {where}, "
-                                      "which is not ported yet")
+            raise NotImplementedError(f"--{field} needs "
+                                      f"{_NOT_PORTED[field]}, which is not "
+                                      "ported yet")
+
+
+def run(args: Args):
+    refuse_unported(args)
     graph = load(args.dataset, setting=args.setting, split=args.split,
                  seed=args.seed, data_dir=args.load_path,
                  pre_norm=args.pre_norm, device=args.device)

@@ -69,6 +69,24 @@ def test_entry_points_default_to_the_card():
         run(finalize(Args(dataset="synth-hard", method="kcenter")))
 
 
+@pytest.mark.parametrize("method", ["doscond", "gcondx", "doscondx",
+                                    "gcdm", "gcdmx", "sgdd", "run_eval"])
+def test_new_entry_points_default_to_the_card(method, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from graphslim_tpu_torch import run_eval
+    from graphslim_tpu_torch.config import Args, finalize
+    from graphslim_tpu_torch.train_all import run
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if method == "run_eval":
+            run_eval.main(["-D", "synth-hard", "-M", "gcond",
+                           "--save_path", str(tmp_path)])
+        else:
+            run(finalize(Args(dataset="synth-hard", method=method,
+                              save_path=str(tmp_path))))
+
+
 def _tiny_builders():
     import numpy as np
 
@@ -86,6 +104,9 @@ def _tiny_builders():
             dict(lin, bns=[{"scale": np.ones(2), "bias": np.zeros(2)}])),
         "model_params_from_jax": lambda: convert.model_params_from_jax(
             "SGC", lin),
+        "ignr_params_from_jax": lambda: convert.ignr_params_from_jax(
+            {"net0": lin["layers"], "net1": lin["layers"], "bn0": [],
+             "bn1": [], "P": np.ones((2, 2))}),
         "build_blocked": lambda: build_blocked(host.indptr, host.col,
                                                host.val),
     }
@@ -94,6 +115,7 @@ def _tiny_builders():
 @pytest.mark.parametrize("name", ["from_edge_index", "submatrix",
                                   "pge_params_from_jax",
                                   "model_params_from_jax",
+                                  "ignr_params_from_jax",
                                   "build_blocked"])
 def test_tensor_builders_default_to_the_card(name):
     if torch.cuda.is_available():
@@ -103,7 +125,7 @@ def test_tensor_builders_default_to_the_card(name):
 
 
 @pytest.mark.parametrize("flag", ["--dropout", "--with_bn",
-                                  "--weight_decay"])
+                                  "--weight_decay", "--sinkhorn_iter"])
 def test_cli_rejects_options_nothing_reads(flag, tmp_path):
     from graphslim_tpu_torch.config import get_args
 
@@ -118,7 +140,7 @@ def test_unported_names_raise_with_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         M.get_model("GAT", M.ModelConfig(nfeat=4, nhid=4, nclass=2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_reducer("doscond", None, None)
+        create_reducer("msgc", None, None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_reducer("clustering", None, None)
 
