@@ -59,13 +59,30 @@ line of output each, any failed check raises (non-zero exit):
    SpMM's share of an epoch's device time.  ``sgdd``: 1 epoch of 20 outer
    steps with IGNR at n = 1354, the rate over steps 2-19 without the
    profiled step 11 and step 12; peak device memory, the ``eigh``, its
-   backward and ``eigvalsh`` of step 11.
+   backward and ``eigvalsh`` of step 11;
+10. k-means, the clustering coarseners, VNG, MSGC, Mirage and GECC at
+   full width on the twin at r = 0.01, through
+   ``create_reducer(...).reduce()`` and the default evaluator (GCN, 3
+   seeds × 300 epochs), each with its reduce and evaluate seconds, its
+   accuracy and the blocked SpMM's launches by width: ``clustering``,
+   ``clustering --agg`` (its ``Â²X``: two launches at d = 128) and
+   ``averaging``; ``vng`` with a GCN at hidden 256 (the k-means's shape
+   and seconds); ``msgc`` at its ogbn-arxiv paper config (init
+   clustering, 16 skeletons, outer 20, inner 3, SGC ntrans 2) cut to 3 of
+   500 epochs with a checkpoint at epoch 1 (the skeleton build's host
+   seconds, epoch 1's outer steps/s, peak device memory, a
+   torch.profiler split of epoch 2); ``mirage`` at
+   its defaults (the quantizing k-means's seconds); ``gecc`` at its
+   ogbn-arxiv config (two hops: two launches at d = 128).  Every result
+   must be finite; clustering, its agg variant, averaging and gecc must
+   score above the test split's largest-class share.
 
 Phases 6 and 7 run before phase 4.  The line before the last is the
-``kernels`` JSON (launches: phases 4, 8 and 9); the last line is
+``kernels`` JSON (launches: phases 4, 8, 9 and 10); the last line is
 ``{"ok": true, "device": {...}}``.  ``--only kernels`` stops after the
 kernel comparisons (phases 2, 3, 6, 7); ``--only condense`` runs phase 9
-alone (after the build) and prints no result.
+alone (after the build) and ``--only cluster`` phase 10, and neither
+prints a result.
 Without a CUDA card, or outside a checkout, it exits non-zero and prints
 no result.
 """
@@ -1281,9 +1298,218 @@ def run_condensers(K, SB, ds, tmp: str) -> dict:
             "spmm_blocked": SB.LAUNCHES["spmm_blocked"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: k-means, the clustering coarseners, VNG, MSGC, Mirage and GECC
+# ---------------------------------------------------------------------------
+
+def cluster_args(method: str, save_path: str, **kw):
+    """The method's ogbn-arxiv config (``method_configs.py``, where it has
+    one) at r = 0.01; evaluation 3 seeds × 300 epochs with GCN."""
+    from graphslim_tpu_torch.config import Args, finalize
+
+    return finalize(Args(dataset="ogbn-arxiv", method=method,
+                         reduction_rate=0.01, save_path=save_path,
+                         run_eval=3, eval_epochs=300, device="cuda", **kw),
+                    explicit={"reduction_rate", "run_eval", "eval_epochs",
+                              *kw})
+
+
+def run_clusterers(SB, ds, tmp: str) -> dict:
+    """clustering, clustering --agg, averaging, vng, msgc, mirage and gecc
+    at full width on the arxiv twin through create_reducer(...).reduce()
+    and the default evaluator; returns each kernel's launches over the
+    phase."""
+    import numpy as np
+    import torch
+
+    from graphslim_tpu_torch.eval import Evaluator
+    from graphslim_tpu_torch.reduce import create_reducer
+    from graphslim_tpu_torch.reduce import msgc as MS
+    from graphslim_tpu_torch.reduce import vng as VN
+
+    ds.adj_norm().blocked()
+    SB.reset_launches()
+    labels_test = ds.labels.cpu().numpy()[ds.idx_test]
+    majority = float(np.bincount(labels_test).max() / labels_test.shape[0])
+    log(f"phase 10: the test split's largest class holds {majority:.4f} "
+        f"of its {labels_test.shape[0]} nodes")
+
+    def widths_since(before: dict) -> dict:
+        return {d: c - before.get(d, 0)
+                for d, c in sorted(SB.LAUNCHES_BY_WIDTH.items())
+                if c > before.get(d, 0)}
+
+    def run(method, args, setup=None, gate=True):
+        torch.cuda.synchronize()
+        eng = create_reducer(method, ds, args)
+        if setup is not None:
+            setup(eng)
+        before = dict(SB.LAUNCHES_BY_WIDTH)
+        t0 = time.perf_counter()
+        red = eng.reduce(ds)
+        torch.cuda.synchronize()
+        t_red = time.perf_counter() - t0
+        w_red = widths_since(before)
+        adj = red.adj if isinstance(red.adj, torch.Tensor) else None
+        if not torch.isfinite(red.feat).all() or \
+                (adj is not None and not torch.isfinite(adj).all()):
+            fail(f"{method}: non-finite reduced graph")
+        if red.labels.shape[0] != red.feat.shape[0] * (
+                1 if adj is None or adj.ndim == 2 else adj.shape[0]):
+            fail(f"{method}: {red.labels.shape[0]} labels for "
+                 f"{red.feat.shape[0]} rows")
+        before = dict(SB.LAUNCHES_BY_WIDTH)
+        t0 = time.perf_counter()
+        (acc, std), _ = Evaluator(ds, args).evaluate(red, args.eval_model)
+        torch.cuda.synchronize()
+        t_eval = time.perf_counter() - t0
+        if not (math.isfinite(acc) and math.isfinite(std)):
+            fail(f"{method}: accuracy {acc} ± {std}")
+        if gate and not acc > majority:
+            fail(f"{method}: accuracy {acc:.4f} is not above the largest "
+                 f"class share {majority:.4f}")
+        summary = (f"n_syn {red.feat.shape[0]}, reduce {t_red:.2f} s (SpMM "
+                   f"launches by width {w_red}), evaluate GCN 3 seeds x 300 "
+                   f"epochs {t_eval:.2f} s (SpMM launches by width "
+                   f"{widths_since(before)}), accuracy {acc:.4f} ± "
+                   f"{std:.4f}")
+        return eng, red, w_red, summary
+
+    # --- clustering, clustering --agg, averaging ------------------------
+    for method, agg in (("clustering", False), ("clustering", True),
+                        ("averaging", False)):
+        args = cluster_args(method, tmp, agg=agg)
+        eng, red, w_red, summary = run(method, args)
+        if agg and w_red.get(ds.n_feat, 0) < 2:
+            fail(f"clustering --agg: SpMM launches by width {w_red}, "
+                 f"expected 2 at d = {ds.n_feat} for its A^2 X")
+        log(f"{method}{' --agg' if agg else ''} ogbn-arxiv r=0.01 "
+            f"({type(eng).__name__}): {summary}")
+        del eng, red
+
+    # --- vng: GCN at hidden 256 -----------------------------------------
+    kmeans, seen = VN.kmeans, {}
+
+    def timed_kmeans(x, k, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = kmeans(x, k, **kw)
+        torch.cuda.synchronize()
+        seen.update(shape=tuple(x.shape), k=k,
+                    seconds=time.perf_counter() - t0)
+        return out
+
+    VN.kmeans = timed_kmeans
+    try:
+        args = cluster_args("vng", tmp, condense_model="GCN", hidden=256)
+        eng, red, _, summary = run("vng", args, gate=False)
+    finally:
+        VN.kmeans = kmeans
+    log(f"vng ogbn-arxiv r=0.01 (GCN, hidden 256, {args.eval_epochs} "
+        f"epochs): degree-weighted k-means k {seen['k']} over "
+        f"{list(seen['shape'])} embeddings {seen['seconds']:.2f} s; "
+        f"{summary} (reported, not gated)")
+    del eng, red
+    torch.cuda.empty_cache()
+
+    # --- msgc: the ogbn-arxiv paper config, 2 of 500 epochs -------------
+    build, built = MS.build_skeletons, {}
+
+    def timed_build(*a, **kw):
+        t0 = time.perf_counter()
+        out = build(*a, **kw)
+        built.update(seconds=time.perf_counter() - t0, entries=len(out[0]))
+        return out
+
+    class K0:                   # the PGE counters EpochTimer reads
+        LAUNCHES: dict = {}
+
+    timers = {}
+    torch.cuda.reset_peak_memory_stats()
+    MS.build_skeletons = timed_build
+    try:
+        args = cluster_args("msgc", tmp, epochs=3).replace(checkpoints=(1,))
+        if (args.init, args.batch_adj, args.outer_loop, args.inner_loop,
+                args.condense_model, args.ntrans, args.threshold) != \
+                ("clustering", 16, 20, 3, "SGC", 2, 0.01):
+            fail(f"msgc: not the ogbn-arxiv paper config ({args})")
+        eng, red, _, summary = run(
+            "msgc", args, gate=False,
+            setup=lambda e: timers.update(t=EpochTimer(e, K0, SB,
+                                                       profile_at=2)))
+    finally:
+        MS.build_skeletons = build
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    timer = timers["t"]
+    if len(timer.seconds) != 3 or tuple(red.adj.shape) != \
+            (16, eng.n_syn, eng.n_syn):
+        fail(f"msgc: {len(timer.seconds)} epochs, adjacency "
+             f"{tuple(red.adj.shape)}")
+    kern = timer.kernels
+    busy = sum(kern.values())
+    if not busy > 0:
+        fail("msgc: torch.profiler recorded no device time")
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:5]
+    losses = [float(x) for x in eng.epoch_loss_sums]
+    log(f"msgc ogbn-arxiv (SGC ntrans 2, ours, init clustering, batch_adj "
+        f"16, outer 20, inner 3, threshold 0.01; 3 of 500 epochs, a "
+        f"checkpoint at epoch 1, epoch 2 profiled): skeletons "
+        f"{built['entries']} entries built on the host in "
+        f"{built['seconds']:.2f} s, epoch 1 "
+        f"{args.outer_loop / timer.seconds[1]:.3f} outer steps/s (epochs "
+        f"{[round(x, 3) for x in timer.seconds]} s), peak device memory "
+        f"{peak:.2f} GiB, epoch losses {[round(x, 4) for x in losses]}; "
+        f"profiled epoch: device busy {busy:.1f} ms (idle share estimated "
+        f"as 1 - busy / epoch 1's wall: "
+        f"{1 - busy / (1e3 * timer.seconds[1]):.3f}), top: "
+        + "; ".join(f"{k[:60]} {v:.1f} ms" for k, v in top)
+        + f"; {summary} (reported, not gated)")
+    del eng, red, timers
+    torch.cuda.empty_cache()
+
+    # --- mirage: defaults -----------------------------------------------
+    quant = {}
+
+    def time_quantization(eng):
+        node_labels = eng.node_labels
+
+        def timed(feat, k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = node_labels(feat, k)
+            quant.update(seconds=time.perf_counter() - t0, k=k)
+            return out
+
+        eng.node_labels = timed
+
+    args = cluster_args("mirage", tmp)
+    eng, red, _, summary = run("mirage", args, setup=time_quantization,
+                               gate=False)
+    log(f"mirage ogbn-arxiv r=0.01 (hops 2, fanout 5, support 0.1, 32 "
+        f"labels): k-means of {quant['k']} labels over {ds.n_nodes} nodes "
+        f"{quant['seconds']:.2f} s, the rest of reduce (hashing, mining, "
+        f"trees) on the host; {red.adj.nnz} tree-edge entries; {summary} "
+        f"(reported, not gated)")
+    del eng, red
+
+    # --- gecc: the ogbn-arxiv config ------------------------------------
+    args = cluster_args("gecc", tmp)
+    if (args.depth, args.agg_gamma, args.agg_alpha, args.agg_beta,
+            args.fuzziness) != (2, 0.6, 0.5, 0.0, 1.0):
+        fail(f"gecc: not the ogbn-arxiv config ({args})")
+    eng, red, w_red, summary = run("gecc", args)
+    if w_red.get(ds.n_feat, 0) < 2:
+        fail(f"gecc: SpMM launches by width {w_red}, expected 2 at d = "
+             f"{ds.n_feat} (one a hop)")
+    log(f"gecc ogbn-arxiv r=0.01 (depth 2, gamma/alpha/beta 0.6/0.5/0.0, "
+        f"k-means): {summary}")
+    return {"spmm_blocked": SB.LAUNCHES["spmm_blocked"]}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=["kernels", "condense"], default=None)
+    ap.add_argument("--only", choices=["kernels", "condense", "cluster"],
+                    default=None)
     opts = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "graphslim_tpu_torch")):
         fail("graphslim_tpu_torch/ not found beside chip_smoke.py")
@@ -1328,9 +1554,10 @@ def main() -> None:
     ds = load("ogbn-arxiv", seed=0, device="cuda")
     log(f"load ogbn-arxiv twin: {ds.n_nodes} nodes, {ds.adj.nnz} edges, "
         f"{time.perf_counter() - t0:.1f} s")
-    if opts.only == "condense":
+    if opts.only in ("condense", "cluster"):
         with tempfile.TemporaryDirectory() as tmp:
-            run_condensers(K, SB, ds, tmp)
+            (run_condensers(K, SB, ds, tmp) if opts.only == "condense"
+             else run_clusterers(SB, ds, tmp))
         return
 
     # --- phases 2-3 ------------------------------------------------------
@@ -1383,6 +1610,11 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         cond = run_condensers(K, SB, ds, tmp)
 
+    # --- phase 10 --------------------------------------------------------
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        clus = run_clusterers(SB, ds, tmp)
+
     src = "graphslim_tpu_torch/csrc/"
     kernels = [
         # ms: the launch kind that keeps the workspace (syn_adj_norm);
@@ -1399,7 +1631,8 @@ def main() -> None:
         dict(name="spmm_blocked", route="cuda",
              source=src + "spmm_blocked.cu",
              replaces="graphslim_tpu/kernels/pallas_spmm_blocked.py:198",
-             launches=core["spmm_blocked"] + cond["spmm_blocked"],
+             launches=core["spmm_blocked"] + cond["spmm_blocked"]
+             + clus["spmm_blocked"],
              **stats["spmm_blocked_d256"]),
         dict(name="smem_gather", route="cuda",
              source=src + "smem_gather.cu",

@@ -58,6 +58,16 @@ class Args:
     mx_size: int = 100
     opt_scale: float = 1e-11
     ep_ratio: float = 0.5
+    # MSGC: skeleton graphs in a batch (16 for msgc, set by finalize)
+    batch_adj: int = 1
+    # GECC: hop weights (X, ÂX, Â²X), hops, fuzzy c-means exponent and
+    # iterations (fuzziness 1 → k-means)
+    agg_alpha: float = 0.9
+    agg_beta: float = 0.9
+    agg_gamma: float = -0.1
+    fuzziness: float = 1.3
+    rep_fuzz: int = 50
+    depth: int = 2
     # --- evaluation -----------------------------------------------------
     run_eval: int = 10
     run_inter_eval: int = 3
@@ -98,6 +108,8 @@ def apply_method_config(args: Args, explicit: set[str]) -> Args:
             continue
         if hasattr(args, key):
             updates[key] = value
+    if args.method == "msgc" and "batch_adj" not in explicit:
+        updates["batch_adj"] = 16
     return args.replace(**updates)
 
 

@@ -22,7 +22,8 @@ def _t(x, device) -> torch.Tensor:
 
 def pge_params_from_jax(tree: dict, device=None) -> dict:
     """JAX PGE params ``{"layers": [{"w", "b"}], "bns": [{"scale",
-    "bias"}]}`` → the port's, same structure."""
+    "bias"}]}`` → the port's, same structure.  MSGC's edge scorer has
+    the same layout and converts the same way."""
     return {
         "layers": [{"w": _t(p["w"], device), "b": _t(p["b"], device)}
                    for p in tree["layers"]],

@@ -74,7 +74,9 @@ class Evaluator:
         tx, tadj, ty = self._train_tuple(reduced, model_type)
         val = self._full_tuple(self.data.idx_val)
         test = self._full_tuple(self.data.idx_test)
-        plan = hoist_plan(model)
+        # a batch of skeleton graphs (MSGC) is not hoisted, as in the JAX
+        # package
+        plan = None if M.is_skeleton_batch(tadj) else hoist_plan(model)
         if plan is not None:
             model, hops, keep = plan
             tx, tadj, ty, _ = hoist_batch((tx, tadj, ty, None), hops, keep)

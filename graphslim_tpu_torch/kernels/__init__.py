@@ -3,4 +3,5 @@
 MLP (:mod:`.pge`), the blocked SpMM (:mod:`.spmm_blocked`) and the
 shared-memory row gather (:mod:`.smem_gather`).  Composed of tensor ops:
 the on-device sampler (:mod:`.sample`), the segment reductions
-(:mod:`.segment`) and the SpMM dispatch (:mod:`.spmm`)."""
+(:mod:`.segment`), the SpMM dispatch (:mod:`.spmm`) and k-means
+(:mod:`.kmeans`)."""

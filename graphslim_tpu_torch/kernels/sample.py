@@ -68,6 +68,22 @@ def build_packed_csr(indptr, indices, values, self_values,
                      node=torch.as_tensor(node, device=device))
 
 
+def packed_csr_of_norm(norm, device) -> PackedCsr:
+    """:class:`PackedCsr` of a normalized host adjacency
+    (``graph.HostAdj``): its off-diagonal entries in row order, its
+    diagonal as the self values."""
+    row, col, val = norm.row, norm.col, norm.val
+    diag = row == col
+    n = norm.n_rows
+    self_vals = np.zeros(n, dtype=np.float32)
+    self_vals[row[diag]] = val[diag]
+    ro, co, vo = row[~diag], col[~diag], val[~diag]
+    order = np.argsort(ro, kind="stable")
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(ro, minlength=n), out=indptr[1:])
+    return build_packed_csr(indptr, co[order], vo[order], self_vals, device)
+
+
 def _bits(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous().view(torch.int32).to(torch.int64)
 

@@ -1,7 +1,8 @@
 """Model zoo registry (the models of this slice: SGC and GCN)."""
 
 from graphslim_tpu_torch.models.base import (
-    GNNModel, ModelConfig, aggregate, aggregate_block, layer_aggregate,
+    GNNModel, ModelConfig, aggregate, aggregate_block, is_skeleton_batch,
+    layer_aggregate,
 )
 from graphslim_tpu_torch.models.zoo import GCN, SGC
 from graphslim_tpu_torch.models.trainer import (

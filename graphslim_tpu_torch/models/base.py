@@ -6,6 +6,9 @@ Counterpart of ``graphslim_tpu/models/base.py``.  ``aggregate`` takes:
   dispatch (on the card: the blocked SpMM kernel);
 * a dense ``[n, n]`` tensor — matmul (synthetic condensed graphs; ``x``
   may carry a leading batch axis);
+* a dense batch ``[B, n, n]`` (MSGC's skeletons) — the batched matmul;
+  ``apply`` then merges the skeleton and node axes of the output to
+  ``[..., B·n, nclass]``, as the JAX package flattens its output;
 * :class:`graphslim_tpu_torch.kernels.sample.BlockSample` — the
   contiguous-slot weighted reshape-sum of sampled neighbourhoods;
 * ``None`` — identity (structure-free methods).
@@ -22,13 +25,31 @@ from graphslim_tpu_torch import graph as G
 from graphslim_tpu_torch.kernels.sample import BlockSample
 
 
+def is_skeleton_batch(adj: Any) -> bool:
+    """Whether ``adj`` is a batch of dense synthetic graphs ``[B, n, n]``
+    (MSGC's skeletons)."""
+    return isinstance(adj, torch.Tensor) and adj.ndim == 3
+
+
 def aggregate(adj: Any, x: torch.Tensor) -> torch.Tensor:
     """One propagation step A @ x for any supported adjacency form."""
     if adj is None:
         return x
     if isinstance(adj, G.SparseAdj):
         return adj.matmul(x)
+    if is_skeleton_batch(adj) and x.ndim == 4:
+        return _skeleton_matmul(adj, x)
     return torch.matmul(adj, x)
+
+
+def _skeleton_matmul(adj: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``[B, n, n] @ [C, B or 1, n, h]`` → ``[C, B, n, h]`` as one product
+    per skeleton, the class axis folded into the columns (a broadcast
+    ``torch.matmul`` would copy the adjacency once per class)."""
+    C, b, n, h = x.shape
+    cols = x.permute(1, 2, 0, 3).reshape(b, n, C * h)
+    out = torch.matmul(adj, cols[0] if b == 1 else cols)
+    return out.reshape(adj.shape[0], n, C, h).permute(2, 0, 1, 3)
 
 
 def aggregate_block(weights: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -89,6 +110,8 @@ class GNNModel:
               training: bool = False,
               gen: Optional[torch.Generator] = None) -> torch.Tensor:
         out = self._forward(params, x, adj, training=training, gen=gen)
+        if is_skeleton_batch(adj):
+            out = out.flatten(-3, -2)
         return torch.log_softmax(out, dim=-1)
 
     def n_layer_features(self) -> int:

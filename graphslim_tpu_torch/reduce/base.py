@@ -47,6 +47,13 @@ def class_budgets(labels_train: np.ndarray, r: float,
     return budgets, np.asarray(labels_syn, dtype=np.int32), class_ranges
 
 
+def budgets_of(labels_syn: np.ndarray) -> dict:
+    """Per-class budgets of an imposed synthetic label vector (a
+    condenser's, handed to its init reducer)."""
+    classes, counts = np.unique(labels_syn, return_counts=True)
+    return dict(zip(classes.tolist(), counts.tolist()))
+
+
 class Reducer:
     """Base reducer: stores (data, args), times ``reduce``, saves output."""
 

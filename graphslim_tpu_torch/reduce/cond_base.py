@@ -30,8 +30,8 @@ from graphslim_tpu_torch import models as M
 from graphslim_tpu_torch import utils
 from graphslim_tpu_torch.data import save_reduced
 from graphslim_tpu_torch.kernels.sample import (BlockSample, PackedCsr,
-                                                build_packed_csr,
-                                                neighbor_sample_block)
+                                                neighbor_sample_block,
+                                                packed_csr_of_norm)
 from graphslim_tpu_torch.models.pge import PGE, PGEConfig
 from graphslim_tpu_torch.reduce.base import Reducer, class_budgets
 
@@ -101,6 +101,16 @@ def _batched(params: dict, C: int) -> dict:
         .requires_grad_(True), params)
 
 
+def _over_skeletons(params: dict, adj) -> dict:
+    """Class-axis leaves ``[C, ...]`` seen as ``[C, 1, ...]`` when the
+    synthetic adjacency is a batch ``[B, n, n]`` (MSGC), so activations
+    run as ``[C, B, n, h]``: the class axis leads, the skeleton axis
+    broadcasts beside it."""
+    if M.is_skeleton_batch(adj):
+        return utils.tree_map(lambda p: p.unsqueeze(1), params)
+    return params
+
+
 class CondensationBase(Reducer):
     """Shared state of the GCond family: budgets, sampler tables,
     optimizers, checkpoint evaluation."""
@@ -122,20 +132,9 @@ class CondensationBase(Reducer):
         self.nclass = data.nclass
         self.gen = utils.make_generator(args.seed, dev)
 
-        # normalized adjacency split into off-diagonal CSR + self values
-        # for the sampler (host mirrors: no device readback)
-        norm_host = data.adj_norm_host()
-        row, col, val = norm_host.row, norm_host.col, norm_host.val
-        diag = row == col
-        n = norm_host.n_rows
-        self_vals = np.zeros(n, dtype=np.float32)
-        self_vals[row[diag]] = val[diag]
-        ro, co, vo = row[~diag], col[~diag], val[~diag]
-        order = np.argsort(ro, kind="stable")
-        indptr_off = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum(np.bincount(ro, minlength=n), out=indptr_off[1:])
-        tables = build_packed_csr(indptr_off, co[order], vo[order],
-                                  self_vals, dev)
+        # the sampler's layout of the normalized adjacency (from the host
+        # mirror: no device readback)
+        tables = packed_csr_of_norm(data.adj_norm_host(), dev)
 
         # per-class pools (padded)
         self.classes = sorted(self.budgets.keys())
@@ -152,15 +151,9 @@ class CondensationBase(Reducer):
             pools=torch.as_tensor(pool_pad, device=dev),
             pool_counts=torch.as_tensor([len(p) for p in pools],
                                         dtype=torch.int64, device=dev),
-            self_vals=torch.as_tensor(self_vals, device=dev),
-            tables=tables)
+            self_vals=tables.node[:, 2], tables=tables)
 
-        cls_arr = labels_syn
-        self.class_masks = torch.as_tensor(
-            np.stack([cls_arr == c for c in self.classes]), device=dev)
-        self.coeffs = torch.as_tensor(
-            [self.budgets[c] / self.n_syn for c in self.classes],
-            dtype=torch.float32, device=dev)
+        self._build_class_tables()
 
         self.model = M.get_model(args.condense_model, M.ModelConfig(
             nfeat=self.d, nhid=args.hidden, nclass=data.nclass,
@@ -173,6 +166,18 @@ class CondensationBase(Reducer):
         self.opt_feat = utils.Adam(args.lr_feat)
         self.opt_pge = utils.Adam(args.lr_adj)
         self.opt_model = utils.Adam(args.lr or 0.01)
+
+    def _build_class_tables(self) -> None:
+        """Class masks over the label vector the matching runs against
+        (longer than ``n_syn`` where MSGC tiles it over its skeletons) and
+        the class weights ``budget / n_syn``."""
+        cls_arr = self.labels_syn.cpu().numpy()
+        dev = self.labels_syn.device
+        self.class_masks = torch.as_tensor(
+            np.stack([cls_arr == c for c in self.classes]), device=dev)
+        self.coeffs = torch.as_tensor(
+            [self.budgets[c] / self.n_syn for c in self.classes],
+            dtype=torch.float32, device=dev)
 
     # ------------------------------------------------------------------
     def init_feat_syn(self, verbose: bool = False) -> torch.Tensor:
@@ -227,7 +232,8 @@ class CondensationBase(Reducer):
                                           utils.tree_leaves(pr))
             # synthetic gradients: differentiable (nested gradient)
             ps = _batched(model_params, C)
-            out_s = self.model.apply(ps, feat_syn, adj_syn_norm)
+            out_s = self.model.apply(_over_skeletons(ps, adj_syn_norm),
+                                     feat_syn, adj_syn_norm)
             loss_s = masked_nll(out_s, self.labels_syn, self.class_masks)
             gw_syn = torch.autograd.grad(loss_s.sum(),
                                          utils.tree_leaves(ps),

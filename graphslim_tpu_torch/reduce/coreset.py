@@ -24,7 +24,8 @@ from graphslim_tpu_torch import models as M
 from graphslim_tpu_torch import utils
 from graphslim_tpu_torch.kernels.segment import segment_sum
 from graphslim_tpu_torch.kernels.smem_gather import gather_rows
-from graphslim_tpu_torch.reduce.base import Reducer, class_budgets
+from graphslim_tpu_torch.reduce.base import (Reducer, budgets_of,
+                                             class_budgets)
 
 
 # ---------------------------------------------------------------------------
@@ -112,8 +113,7 @@ class CoreSetBase(Reducer):
         if labels_syn_override is not None:
             # condensation init: sizes come from the caller's label budget
             ls = np.asarray(labels_syn_override)
-            classes, counts = np.unique(ls, return_counts=True)
-            self.budgets = dict(zip(classes.tolist(), counts.tolist()))
+            self.budgets = budgets_of(ls)
             self.labels_syn = ls
             self.labels_syn_override = ls
         else:

@@ -26,13 +26,17 @@ _PORTED = {
     "gcdm": ("gcdm", "GCDM", None),
     "gcdmx": ("gcdm", "GCDMX", None),
     "sgdd": ("sgdd", "SGDD", None),
+    "clustering": ("clustering", "Cluster", "ClusterAgg"),
+    "averaging": ("clustering", "Average", None),
+    "vng": ("vng", "VNG", None),
+    "msgc": ("msgc", "MSGC", None),
+    "mirage": ("mirage", "Mirage", None),
+    "gecc": ("gecc", "GECC", None),
 }
 
 # name → ROADMAP.md queue-1 item that ports it
 _QUEUED = {
-    **{m: 9 for m in ("msgc", "sfgc", "geom", "gcsntk", "simgc", "gdem",
-                      "gecc", "mirage")},
-    **{m: 10 for m in ("clustering", "averaging", "vng")},
+    **{m: 9 for m in ("sfgc", "geom", "gcsntk", "simgc", "gdem")},
     **{m: 11 for m in ("random_edge", "g_spar", "local_degree", "scan",
                        "spanning_forest", "rank_degree", "t_spanner",
                        "variation_neighborhoods", "variation_edges",
@@ -47,8 +51,9 @@ _ALIASES = {"algebraic_JC": "algebraic_jc", "affinity_GS": "affinity_gs",
 
 def create_reducer(method: str, data, args, **kwargs):
     """Instantiate a reducer on ``data``'s device (``args.agg`` selects
-    the aggregated-features variant of a coreset); ``kwargs`` (e.g.
-    ``labels_syn_override``) pass through to the reducer."""
+    the aggregated-features variant of a coreset or of clustering);
+    ``kwargs`` (e.g. ``labels_syn_override``) pass through to the
+    reducer."""
     method = _ALIASES.get(method, method)
     if method in _QUEUED:
         raise NotImplementedError(

@@ -70,7 +70,9 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("method", ["doscond", "gcondx", "doscondx",
-                                    "gcdm", "gcdmx", "sgdd", "run_eval"])
+                                    "gcdm", "gcdmx", "sgdd", "run_eval",
+                                    "clustering", "averaging", "vng",
+                                    "msgc", "mirage", "gecc"])
 def test_new_entry_points_default_to_the_card(method, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
@@ -125,7 +127,8 @@ def test_tensor_builders_default_to_the_card(name):
 
 
 @pytest.mark.parametrize("flag", ["--dropout", "--with_bn",
-                                  "--weight_decay", "--sinkhorn_iter"])
+                                  "--weight_decay", "--sinkhorn_iter",
+                                  "--balance_alpha"])
 def test_cli_rejects_options_nothing_reads(flag, tmp_path):
     from graphslim_tpu_torch.config import get_args
 
@@ -140,9 +143,9 @@ def test_unported_names_raise_with_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         M.get_model("GAT", M.ModelConfig(nfeat=4, nhid=4, nclass=2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_reducer("msgc", None, None)
+        create_reducer("sfgc", None, None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_reducer("clustering", None, None)
+        create_reducer("kron", None, None)
 
 
 @pytest.mark.parametrize("wrapper", ["spmm_blocked", "smem_gather"])
