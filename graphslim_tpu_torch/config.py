@@ -68,6 +68,52 @@ class Args:
     fuzziness: float = 1.3
     rep_fuzz: int = 50
     depth: int = 2
+    # GCSNTK: SNTK aggregations and ReLU layers per aggregation, the
+    # aggregation's scaling ('add' | 'average'), KRR ridge
+    K: int = 2
+    L: int = 2
+    scale: str = "average"
+    ridge: float = 1.0
+    # SimGC: alignment and smoothness weights; lr_teacher is shared with
+    # the SFGC/GEOM experts
+    feat_alpha: float = 10.0
+    smoothness_alpha: float = 0.1
+    lr_teacher: float = 0.4
+    # SFGC/GEOM expert trajectories ('Adam' | 'SGD') and the student's
+    # unrolled steps
+    teacher_epochs: int = 800
+    expert_epochs: int = 1500
+    syn_steps: int = 500
+    start_epoch: int = 30
+    num_experts: int = 20
+    lr_student: float = 0.5
+    wd_teacher: float = 0.0
+    mom_teacher: float = 0.0
+    optim: str = "Adam"
+    optim_lr: int = 0
+    no_buff: bool = False
+    # GEOM: soft labels, the curriculum schedule and the start window;
+    # beta weighs GEOM's KL term and GDEM's class-embedding loss
+    soft_label: int = 0
+    lr_y: float = 5e-5
+    beta: float = 0.1
+    T: int = 1500
+    lam: float = 0.75
+    scheduler: str = "geom"
+    min_start_epoch: int = 0
+    max_start_epoch: int = 200
+    max_start_epoch_s: int = 50
+    # GDEM: eigenvectors kept and the share of the smallest, their lr,
+    # orthogonality weight, eigenvector/feature steps of a period, and the
+    # large-graph eigensolver (auto | host | device; auto is the device on
+    # the card, the host ARPACK on the CPU)
+    eigen_k: int = 60
+    ratio: float = 0.8
+    lr_eigenvec: float = 0.01
+    gamma: float = 0.5
+    e1: int = 10
+    e2: int = 15
+    eigen_backend: str = "auto"
     # --- evaluation -----------------------------------------------------
     run_eval: int = 10
     run_inter_eval: int = 3

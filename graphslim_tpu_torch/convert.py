@@ -5,6 +5,12 @@ The port keeps the JAX package's parameter layout (a linear's ``w`` is
 float32 tensor.  The functions take numpy arrays (``np.asarray`` of the
 JAX leaves), so this module never imports JAX.  The tensors land on the
 CUDA card unless ``device`` says otherwise.
+
+:func:`flatten_params` and :func:`unflatten_params` are the flat layout of
+``jax.flatten_util.ravel_pytree``: the leaves in JAX's order (dict keys
+sorted, so a linear's ``b`` comes before its ``w``), each raveled row-major,
+concatenated.  SFGC's and GEOM's expert buffers hold parameter vectors in
+this layout, so a buffer written by either package reads in the other.
 """
 
 from __future__ import annotations
@@ -12,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from graphslim_tpu_torch.utils import resolve_device
+from graphslim_tpu_torch.utils import resolve_device, tree_leaves
 
 
 def _t(x, device) -> torch.Tensor:
@@ -56,4 +62,35 @@ def model_params_from_jax(name: str, tree: dict, device=None) -> dict:
     out = {"layers": [_linear(p, device) for p in tree["layers"]]}
     if "bns" in tree:
         out["bns"] = [_linear(p, device) for p in tree["bns"]]
+    return out
+
+
+def flatten_params(tree) -> torch.Tensor:
+    """The parameter tree as one vector, in ``ravel_pytree``'s layout."""
+    return torch.cat([p.reshape(-1) for p in tree_leaves(tree)])
+
+
+def unflatten_params(flat: torch.Tensor, like):
+    """A tree shaped as ``like`` whose leaves are views of ``flat``
+    (differentiable in ``flat``); the inverse of :func:`flatten_params`."""
+    pos = 0
+
+    def take(leaf):
+        nonlocal pos
+        n = leaf.numel()
+        out = flat[pos:pos + n].view(leaf.shape)
+        pos += n
+        return out
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(x) for x in t)
+        return take(t)
+
+    out = walk(like)
+    if pos != flat.shape[0]:
+        raise ValueError(f"a vector of {flat.shape[0]} values for a tree of "
+                         f"{pos}")
     return out

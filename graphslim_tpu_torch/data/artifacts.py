@@ -32,8 +32,9 @@ def save_reduced(reduced: G.Reduced, save_path: str, method: str,
                  dataset: str, r: float, seed: int) -> str:
     path = _triple_path(save_path, method, dataset, r, seed)
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    payload = {"feat": _np(reduced.feat),
-               "labels": _np(reduced.labels).astype(np.int32)}
+    # labels keep their own dtype: hard labels are integers, soft labels
+    # (GCSNTK's, GEOM's) float [n_syn, nclass] rows
+    payload = {"feat": _np(reduced.feat), "labels": _np(reduced.labels)}
     if reduced.adj is None:
         payload["adj_kind"] = np.array("identity")
     elif isinstance(reduced.adj, G.SparseAdj):
@@ -57,8 +58,10 @@ def read_npz(path: str, device=None) -> G.Reduced:
     dev = resolve_device(device)
     with np.load(path, allow_pickle=False) as data:
         feat = torch.as_tensor(data["feat"].astype(np.float32), device=dev)
-        labels = torch.as_tensor(data["labels"].astype(np.int64),
-                                 device=dev)
+        labels = data["labels"]
+        labels = torch.as_tensor(labels.astype(
+            np.float32 if np.issubdtype(labels.dtype, np.floating)
+            else np.int64), device=dev)
         kind = str(data["adj_kind"]) if "adj_kind" in data.files else (
             "dense" if "adj" in data.files else "identity")
         if kind == "identity":

@@ -4,7 +4,9 @@ Counterpart of ``graphslim_tpu/models/trainer.py``; the epoch ``lax.scan``
 is a Python loop, and the best-by-validation selection stays on the device
 (``torch.where``), so an epoch never waits for the host.  Semantics as
 there: Adam with coupled weight decay, lr ×0.1 from the halfway epoch when
-lr > 1e-3, best weights by validation metric.
+lr > 1e-3, best weights by validation metric, and the loss chosen as there:
+the soft-label cross entropy when ``loss == "soft"`` or the labels are 2-D
+(GCSNTK's and GEOM's soft labels), NLL otherwise.
 """
 
 from __future__ import annotations
@@ -24,6 +26,18 @@ class TrainConfig:
     lr: float = 0.01
     weight_decay: float = 5e-4
     metric: str = "accuracy"
+    loss: str = "nll"   # 'nll' | 'soft'
+
+
+def _loss(cfg: TrainConfig, log_probs: torch.Tensor,
+          y: torch.Tensor) -> torch.Tensor:
+    if cfg.loss == "soft" or y.ndim == 2:
+        return utils.soft_ce_loss(log_probs, y)
+    if cfg.loss in ("mse", "bce"):
+        raise NotImplementedError(
+            f"the {cfg.loss!r} loss is not ported yet (ROADMAP.md, queue 1, "
+            "item 12)")
+    return utils.nll_loss(log_probs, y)
 
 
 def _select_rows(out: torch.Tensor, idx) -> torch.Tensor:
@@ -54,7 +68,7 @@ def fit_with_val(model: GNNModel, gen: torch.Generator, *, train: tuple,
         lr_t = cfg.lr * 0.1 if (i >= half and cfg.lr > 1e-3) else cfg.lr
         with torch.enable_grad():
             out = model.apply(params, tx, tadj, training=True, gen=gen)
-            loss = utils.nll_loss(_select_rows(out, tidx), ty)
+            loss = _loss(cfg, _select_rows(out, tidx), ty)
             grads = torch.autograd.grad(loss, leaves)
         opt.step(leaves, grads, state, lr=lr_t)
         with torch.no_grad():

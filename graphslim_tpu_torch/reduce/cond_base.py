@@ -180,15 +180,19 @@ class CondensationBase(Reducer):
             dtype=torch.float32, device=dev)
 
     # ------------------------------------------------------------------
-    def init_feat_syn(self, verbose: bool = False) -> torch.Tensor:
-        """Synthetic features from the ``args.init`` reducer."""
+    def init_reduced(self, verbose: bool = False) -> G.Reduced:
+        """The ``args.init`` reducer's graph at this engine's labels."""
         from graphslim_tpu_torch.reduce.registry import create_reducer
 
         init_args = self.args.replace(method=self.args.init)
         agent = create_reducer(self.args.init, self.data, init_args,
                                labels_syn_override=self.labels_syn.cpu()
                                .numpy())
-        feat = agent.reduce(self.data, verbose=verbose).feat.clone()
+        return agent.reduce(self.data, verbose=verbose)
+
+    def init_feat_syn(self, verbose: bool = False) -> torch.Tensor:
+        """Synthetic features from the ``args.init`` reducer."""
+        feat = self.init_reduced(verbose).feat.clone()
         if feat.shape[0] != self.n_syn:
             raise RuntimeError(f"init gave {feat.shape[0]} rows, "
                                f"expected {self.n_syn}")
@@ -279,16 +283,20 @@ class CondensationBase(Reducer):
     # ------------------------------------------------------------------
     def intermediate_evaluation(self, feat_syn, adj_syn, best_val: float,
                                 it: int, loss_avg: float,
-                                verbose: bool = False) -> float:
+                                verbose: bool = False,
+                                labels=None) -> float:
         """Checkpoint: ``run_inter_eval`` quick trainings on the current
-        synthetic graph; save the best by validation."""
+        synthetic graph; save the best by validation.  ``labels`` replace
+        ``labels_syn`` (GCSNTK's and GEOM's soft labels, which the trainer
+        fits with the soft loss)."""
         from graphslim_tpu_torch.eval import Evaluator
 
         args = self.args
         reduced = G.Reduced(
             feat=feat_syn.detach().clone(),
             adj=None if adj_syn is None else adj_syn.detach(),
-            labels=self.labels_syn)
+            labels=self.labels_syn if labels is None
+            else labels.detach().clone())
         ev = Evaluator(self.data, args)
         accs = []
         for s in range(args.run_inter_eval):

@@ -32,11 +32,15 @@ _PORTED = {
     "msgc": ("msgc", "MSGC", None),
     "mirage": ("mirage", "Mirage", None),
     "gecc": ("gecc", "GECC", None),
+    "gcsntk": ("gcsntk", "GCSNTK", None),
+    "simgc": ("simgc", "SimGC", None),
+    "sfgc": ("sfgc", "SFGC", None),
+    "geom": ("geom", "GEOM", None),
+    "gdem": ("gdem", "GDEM", None),
 }
 
 # name → ROADMAP.md queue-1 item that ports it
 _QUEUED = {
-    **{m: 9 for m in ("sfgc", "geom", "gcsntk", "simgc", "gdem")},
     **{m: 11 for m in ("random_edge", "g_spar", "local_degree", "scan",
                        "spanning_forest", "rank_degree", "t_spanner",
                        "variation_neighborhoods", "variation_edges",

@@ -1,8 +1,9 @@
-"""Shared utilities: device resolution, seeding, losses, metrics, Adam.
+"""Shared utilities: device resolution, seeding, losses, metrics, Adam, SGD.
 
 Counterpart of ``graphslim_tpu/utils.py`` (only what the ported paths
-need).  ``Adam`` is written out so its arithmetic is exactly optax's
-``adam``: bias-corrected moments and ``eps`` added after the square root.
+need).  ``Adam`` and ``SGD`` are written out so their arithmetic is exactly
+optax's ``adam`` (bias-corrected moments, ``eps`` added after the square
+root) and ``sgd`` (momentum as ``optax.trace``).
 """
 
 from __future__ import annotations
@@ -93,6 +94,13 @@ def nll_loss(log_probs: torch.Tensor, labels: torch.Tensor,
     return -ll.mean(-1)
 
 
+def soft_ce_loss(log_probs: torch.Tensor,
+                 soft_targets: torch.Tensor) -> torch.Tensor:
+    """Soft-label cross entropy: the mean over rows of
+    ``-Σ_c target_c · log p_c``."""
+    return -(soft_targets * log_probs).sum(-1).mean(-1)
+
+
 def cdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Pairwise Euclidean distances [n_a, n_b] by the expansion
     ‖a‖² + ‖b‖² − 2·a·bᵀ (the JAX package's formula, so argmins agree)."""
@@ -136,3 +144,26 @@ class Adam:
             v.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
             u = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
             p.sub_(lr * u)
+
+
+class SGD:
+    """SGD with optax's arithmetic: ``t = g + momentum · t``, then
+    ``p -= lr · t``; ``weight_decay`` is added to the gradient first, as
+    ``optax.chain(add_decayed_weights, sgd)`` does.  Parameters are
+    updated in place."""
+
+    def __init__(self, lr: float, momentum: float = 0.0,
+                 weight_decay: float = 0.0):
+        self.lr, self.momentum = lr, momentum
+        self.weight_decay = weight_decay
+
+    def init(self, params: list) -> dict:
+        return {"trace": [torch.zeros_like(p) for p in params]}
+
+    @torch.no_grad()
+    def step(self, params: list, grads: list, state: dict) -> None:
+        for p, g, t in zip(params, grads, state["trace"]):
+            if self.weight_decay:
+                g = g + self.weight_decay * p
+            t.mul_(self.momentum).add_(g)
+            p.sub_(self.lr * t)

@@ -72,7 +72,8 @@ def test_entry_points_default_to_the_card():
 @pytest.mark.parametrize("method", ["doscond", "gcondx", "doscondx",
                                     "gcdm", "gcdmx", "sgdd", "run_eval",
                                     "clustering", "averaging", "vng",
-                                    "msgc", "mirage", "gecc"])
+                                    "msgc", "mirage", "gecc", "gcsntk",
+                                    "simgc", "sfgc", "geom", "gdem"])
 def test_new_entry_points_default_to_the_card(method, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
@@ -143,7 +144,7 @@ def test_unported_names_raise_with_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         M.get_model("GAT", M.ModelConfig(nfeat=4, nhid=4, nclass=2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_reducer("sfgc", None, None)
+        create_reducer("heavy_edge", None, None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_reducer("kron", None, None)
 
