@@ -7,7 +7,9 @@ line of output each, any failed check raises (non-zero exit):
 1. the card's name and power limit; build of the kernels (one nvcc for
    each source under ``graphslim_tpu_torch/csrc``, all started together);
 2. the PGE forward kernel against its plain version on the card, at the
-   slice's shapes (n = 1354, H = 256, L2 = 1) and smaller ragged ones,
+   slice's shapes (n = 1354, H = 256, L2 = 1), the inductive twins'
+   (n = 713 and 186 at H = 256, 36 at H = 128; timed beside their
+   bounds) and smaller ragged ones,
    in fp32 and with bf16 matmul operands; at the slice's shape both
    launch kinds (keeping the workspace the backward reads, and without
    it, as under no_grad), equal bit for bit, each timed with the bytes of
@@ -35,7 +37,12 @@ line of output each, any failed check raises (non-zero exit):
    backward, timed beside its bound and ``torch.sparse.mm``; (c) ragged
    graphs with
    empty rows and a row heavier than a tile; each result must repeat bit
-   for bit;
+   for bit; (d) the train subgraphs' Â of the inductive twins at the
+   widths phase 12 gives them (``IND_SPMM_WIDTHS``: flickr 500, 501, 7;
+   reddit 602, 603, 256, 41; yelp 2, 33), against the plain version and
+   float64 on column slabs, timed beside ``torch.sparse.mm`` and its byte
+   bound: in phase 12, on each twin as it is loaded (``--only kernels``
+   loads them here);
 8. the coreset path at full width through ``train_all.run`` on
    ``ogbn-arxiv`` (r = 0.01, hidden 256, 300 epochs): ``kcenter`` with
    GCN, ``herding`` with ``agg`` and SGC, ``cent_p`` with GCN, 3 seeds
@@ -98,14 +105,27 @@ line of output each, any failed check raises (non-zero exit):
    soft-label artifact must read back equal; ``gdem`` solves for 1000
    eigenpairs on the card, which must stay there (no ARPACK) with a
    residual below 1e-2, 26 SpMM launches at d = 1100 a sweep and its
-   cache written in this run, then runs 12 epochs.
+   cache written in this run, then runs 12 epochs;
+12. the inductive setting at full width, depth cut: the flickr twin
+   (r = 0.01), after 7 (d): GCond at its paper config (n_syn 713, PGE nhid 256,
+   fanouts [15, 8]) for 3 epochs with SGC on the test subgraph (3 seeds ×
+   300 epochs), kcenter with GCN (pools local to the train subgraph,
+   gathers on the card), then every other ported reducer once (phases
+   9-11's cuts, one GCN seed); the reddit twin (r = 0.001): GCond (n_syn
+   186) for 2 of its 1000 epochs with SGC; the yelp twin: GCond (n_syn 36,
+   PGE nhid 128) with GCN scored by macro F1.  Each run prints n_syn,
+   reduce seconds, outer steps/s where it applies, launches by kind and
+   SpMM width, peak memory and the idle share of a profiled epoch, step
+   or (device-traced) reduce; GCond must keep the PGE launch rule.  Each
+   run's launches are counted from 0 (the counters are reset just before
+   it and read just after).
 
 Phases 6 and 7 run before phase 4.  The line before the last is the
-``kernels`` JSON (launches: phases 4, 8, 9, 10 and 11); the last line is
-``{"ok": true, "device": {...}}``.  ``--only kernels`` stops after the
+``kernels`` JSON (launches: phases 4, 8, 9, 10, 11 and 12); the last line
+is ``{"ok": true, "device": {...}}``.  ``--only kernels`` stops after the
 kernel comparisons (phases 2, 3, 6, 7); ``--only condense`` runs phase 9
-alone (after the build), ``--only cluster`` phase 10 and ``--only
-distill`` phase 11, and none of them prints a result.
+alone (after the build), ``--only cluster`` phase 10, ``--only distill``
+phase 11 and ``--only ind`` phase 12, and none of them prints a result.
 Without a CUDA card, or outside a checkout, it exits non-zero and prints
 no result.
 """
@@ -309,13 +329,22 @@ def plain_vjp_ms(K, args, R, n: int, bf16: bool) -> float:
 # the plain version's distance instead).  Each case's two precisions share
 # its inputs.  The first case is the slice's shape and times the kernels;
 # at H = 320 a backward block holds one pair of operand tiles, not two.
+# The inductive twins' shapes (phase 12) take the tolerances of the cases
+# beside them: n = 713 (flickr, r = 0.01) those of n = 1354 off the kink,
+# n = 186 (reddit, r = 0.001: a partial second column tile of 58) and
+# n = 36 at H = 128 (yelp, r = 0.001) those of the small cases.
 KERNEL_CASES = [(1354, 256, 1, 0.0, 1e-2, 1e-2),
                 (1354, 256, 1, 4.0, 5e-3, None),
+                (713, 256, 1, 4.0, 5e-3, None),
                 (500, 256, 1, 4.0, 1e-4, None),
                 (500, 256, 1, 0.0, 1e-2, 1e-2),
                 (200, 256, 2, 4.0, 1e-4, None),
+                (186, 256, 1, 4.0, 1e-4, None),
                 (150, 320, 1, 4.0, 1e-4, None),
-                (45, 64, 0, 0.0, 1e-4, None)]
+                (45, 64, 0, 0.0, 1e-4, None),
+                (36, 128, 1, 4.0, 1e-4, None)]
+# (n, H, L2) of the inductive twins' PGE, timed beside the slice's shape
+IND_PGE_SHAPES = {(713, 256, 1), (186, 256, 1), (36, 128, 1)}
 
 
 def f64_distances(grads, gref, g64, rtol64, bad: list, tag: str,
@@ -443,6 +472,25 @@ def compare_kernels(K, stats: dict) -> None:
                     stats["pge_bwd"] = dict(
                         max_abs_err=e_b, ms=bwd_ms, plain_ms=plain_bwd,
                         bound_ms=b["bwd"], bound_by=b["bwd_by"])
+            elif bf16 and (n, H, L2) in IND_PGE_SHAPES:
+                # an inductive twin's shape, at the main path's precision
+                b = pge_bounds(n, H, L2, bf16)
+                fwd_ms = timed_ms(lambda: K.pge_fwd(*args, n, bf16), 10)
+                bwd_ms = timed_ms(
+                    lambda: K.pge_bwd(*args, R, ws, stat, n, bf16), 10)
+                with torch.no_grad():
+                    plain_fwd = timed_ms(
+                        lambda: K.pair_scores_plain(*args, n, bf16), 3)
+                plain_bwd = plain_vjp_ms(K, args, R, n, bf16)
+                line += (f"; fwd keeping the workspace {fwd_ms:.4f} ms "
+                         f"(plain {plain_fwd:.4f}, bound {b['fwd']:.4f} by "
+                         f"{b['fwd_by']}); bwd {bwd_ms:.4f} ms (plain vjp "
+                         f"{plain_bwd:.4f}, bound {b['bwd']:.4f} by "
+                         f"{b['bwd_by']})")
+                stats.setdefault("pge_ind", {})[f"n{n}_H{H}"] = dict(
+                    fwd_ms=fwd_ms, bwd_ms=bwd_ms, plain_fwd_ms=plain_fwd,
+                    plain_bwd_ms=plain_bwd, fwd_bound_ms=b["fwd"],
+                    bwd_bound_ms=b["bwd"])
             log(line)
             del grads, gref, out, ref, ws, stat
             torch.cuda.empty_cache()
@@ -1606,11 +1654,15 @@ def distill_args(method: str, save_path: str, checkpoints: tuple, **kw):
 class Stamps:
     """Wraps a reducer method: the wall clock (after a device sync) at
     each call, the seconds each call took, and a torch.profiler breakdown
-    (device ms by kernel) of the call numbered ``profile_at``."""
+    (device ms by kernel) of the call numbered ``profile_at`` (with
+    ``device_only``, a trace of the card's work without the host's
+    operators, for a call of many thousand launches)."""
 
-    def __init__(self, eng, name: str, profile_at=None):
+    def __init__(self, eng, name: str, profile_at=None,
+                 device_only: bool = False):
         self.fn, self.at, self.seconds = getattr(eng, name), [], []
         self.profile_at, self.kernels = profile_at, None
+        self.device_only = device_only   # trace the card's work alone
         setattr(eng, name, self)
 
     def __call__(self, *a, **kw):
@@ -1621,8 +1673,9 @@ class Stamps:
         t0 = time.perf_counter()
         self.at.append(t0)
         if len(self.seconds) == self.profile_at:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            kinds = [ProfilerActivity.CUDA] if self.device_only else \
+                [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+            with profile(activities=kinds) as prof:
                 out = self.fn(*a, **kw)
                 torch.cuda.synchronize()
             self.kernels = device_time_by_kernel(prof)
@@ -1863,10 +1916,492 @@ def run_distillers(K, SB, SG, ds, tmp: str, stats: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the inductive setting on the flickr, reddit and yelp twins
+# ---------------------------------------------------------------------------
+
+SLAB = 64       # column slabs of the plain and float64 reddit-twin SpMMs
+
+
+def load_ind_twin(name: str) -> tuple:
+    """(dataset, seconds): the twin synthesized (or read from the cache
+    under ``build/cache``), then loaded with its inductive views; each
+    subgraph's host normalization and blocked layout built once, timed."""
+    import torch
+
+    from graphslim_tpu_torch.data import load, loader
+
+    spec = loader.DATASET_SPECS[name]
+    t0 = time.perf_counter()
+    loader._synth_cached(name, spec)
+    secs = {"synthesis": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    ds = load(name, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    secs["load and views"] = time.perf_counter() - t0
+    if ds.setting != "ind":
+        fail(f"{name}: setting {ds.setting}, expected ind")
+    for split in ("train", "val", "test"):
+        t0 = time.perf_counter()
+        ds.view_norm_host(split)
+        secs[f"{split} norm"] = time.perf_counter() - t0
+        layout = ds.view_norm(split).blocked()
+        if ds.view_norm(split).blocked(transpose=True) is not layout:
+            fail(f"{name}: the {split} subgraph's Â is not symmetric")
+        secs[f"{split} layout"] = layout.build_seconds
+    sizes = ", ".join(
+        f"{s} {getattr(ds, 'feat_' + s).shape[0]} rows / "
+        f"{getattr(ds, 'adj_' + s).nnz} entries" for s in
+        ("train", "val", "test"))
+    log(f"{name} twin: {ds.n_nodes} nodes, {ds.adj.nnz} entries, d "
+        f"{ds.n_feat}, {ds.nclass} classes; views: {sizes}; seconds: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
+    return ds, secs
+
+
+# The widths phase 12 gives the blocked SpMM on each twin's train subgraph:
+# the features (and the hoisted ``[X | 1]``), the hidden width on reddit
+# and the class counts (yelp's 33: its 32 features hoisted)
+IND_SPMM_WIDTHS = {"flickr": (500, 501, 7), "reddit": (602, 603, 256, 41),
+                   "yelp": (2, 33)}
+
+
+def compare_spmm_ind(SB, ds, stats: dict) -> None:
+    """The blocked SpMM on the twin's train subgraph Â at each of its
+    ``IND_SPMM_WIDTHS``, against its plain version and a float64 product
+    on column slabs of 64 (whole-width gathers of the reddit twin's
+    entries would take 67 GB), timed beside the plain version (summed
+    over the slabs), ``torch.sparse.mm`` and its byte bound; at d = 256
+    the backward too."""
+    import torch
+
+    from graphslim_tpu_torch.kernels.spmm import spmm_plain
+
+    name = ds.name
+    adj = ds.view_norm("train")
+    layout = adj.blocked()
+    n, nnz = adj.n_rows, adj.nnz
+    csr = adj.to_csr()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    bad: list = []
+    for d in IND_SPMM_WIDTHS[name]:
+        x = torch.randn(n, d, generator=gen, device="cuda")
+        out = SB.spmm_blocked(layout, x)
+        torch.cuda.synchronize()
+        err, plain = 0.0, 0.0
+        for a in range(0, d, SLAB):
+            xs = x[:, a:a + SLAB].contiguous()
+            ref = SB.spmm_blocked_plain(layout, xs)
+            f64 = spmm_plain(adj.row, adj.col, adj.values_or_ones().double(),
+                             xs.double(), n)
+            tag = f"spmm {name} train d={d} cols {a}"
+            err = max(err, check_close(f"{tag}: vs plain", out[:, a:a + SLAB],
+                                       ref, TOL_SPMM, bad, f64))
+            check_close(f"{tag}: vs float64", out[:, a:a + SLAB].double(),
+                        f64, TOL_SPMM, bad)
+            del ref, f64
+            plain += median_ms(lambda: SB.spmm_blocked_plain(layout, xs),
+                               3, 1)
+        if not torch.equal(out, SB.spmm_blocked(layout, x)):
+            bad.append(f"spmm {name} train d={d}: two runs differ")
+        del out
+        torch.cuda.empty_cache()
+        extra = ""
+        if d == 256:
+            g = torch.randn(n, d, generator=gen, device="cuda")
+            leaf = x.clone().requires_grad_(True)
+            with torch.enable_grad():
+                (gx,) = torch.autograd.grad(adj.matmul(leaf), leaf, g)
+            err_b = 0.0
+            for a in range(0, d, SLAB):
+                gs = g[:, a:a + SLAB].contiguous()
+                g64 = adj.rmatmul(gs.double(), n)
+                err_b = max(err_b, check_close(
+                    f"spmm {name} train d={d} bwd cols {a} vs float64",
+                    gx[:, a:a + SLAB].double(), g64, TOL_SPMM, bad))
+                del g64
+            err = max(err, err_b)
+            extra = f", bwd max|Δ| against float64 {err_b:.2e}"
+            del g, leaf, gx
+        ms = median_ms(lambda: SB.spmm_blocked(layout, x))
+        lib = median_ms(lambda: torch.sparse.mm(csr, x))
+        bound = spmm_bound_ms(nnz, n, n, d)
+        plan = SB.launch_plan(d, d % 4 == 0)
+        log(f"spmm {name} twin train subgraph d={d} ({n} rows, {nnz} "
+            f"entries, layout {layout.describe()}; {plan['n_slabs']} "
+            f"walk(s) of the entries): max|Δ| {err:.2e}{extra}; kernel "
+            f"{ms:.4f} ms (plain {plain:.3f} ms over {-(-d // SLAB)} slabs; "
+            f"torch.sparse.mm {lib:.4f} ms; bound {bound:.4f} ms by bytes)")
+        stats[f"spmm_blocked_{name}_d{d}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+            bound_by="bytes", library_ms=lib)
+        del x
+        torch.cuda.empty_cache()
+    del csr
+    torch.cuda.empty_cache()
+    if bad:
+        fail(f"blocked SpMM disagrees on the {name} twin's train subgraph:"
+             "\n  " + "\n  ".join(bad))
+
+
+def ind_args(name: str, method: str, save_path: str, run_eval: int,
+             checkpoints: tuple = (), **kw):
+    """The method's paper config for the twin (``method_configs.py``) at
+    the twin's representative rate, cut in depth by ``kw``; one quick
+    training at each checkpoint; evaluation ``run_eval`` seeds × 300
+    epochs."""
+    from graphslim_tpu_torch.config import Args, finalize
+
+    args = finalize(Args(dataset=name, method=method, save_path=save_path,
+                         run_inter_eval=1, run_eval=run_eval,
+                         eval_epochs=300, device="cuda", **kw),
+                    explicit={"run_inter_eval", "run_eval", "eval_epochs",
+                              *kw})
+    if args.setting != "ind":
+        fail(f"{method} on {name}: setting {args.setting}")
+    return args.replace(checkpoints=checkpoints)
+
+
+class Launches:
+    """Sets the kernels' launch counters to 0 just before a run; ``since``
+    reads them just after, by kind and SpMM width."""
+
+    def __init__(self, K, SB, SG):
+        self.mods = (K, SB, SG)
+        for mod in self.mods:
+            mod.reset_launches()
+
+    def since(self) -> dict:
+        K, SB, SG = self.mods
+        out = dict(K.LAUNCHES, gather=SG.LAUNCHES["smem_gather"])
+        out.update({f"spmm d={d}": c
+                    for d, c in SB.LAUNCHES_BY_WIDTH.items()})
+        return {k: v for k, v in sorted(out.items()) if v > 0}
+
+
+def busy_ms(fn) -> tuple:
+    """(result, wall s, device-busy ms) of ``fn()`` under torch.profiler,
+    tracing the card's work alone (a whole reduce has host loops of
+    thousands of operators, which a host trace would slow severalfold)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy = sum(device_time_by_kernel(prof).values())
+    if not busy > 0:
+        fail("torch.profiler recorded no device time")
+    return out, wall, busy
+
+
+def pge_rule(launches: dict, outer: int, nograd: int) -> None:
+    """One PGE forward keeping the workspace and one backward an outer
+    step; ``nograd`` forwards without it (every ``inference_adj``: the
+    inner loops', the checkpoints' and the end's)."""
+    got = (launches.get("pge_fwd_ws", 0), launches.get("pge_bwd", 0),
+           launches.get("pge_fwd_nows", 0))
+    if got != (outer, outer, nograd):
+        fail(f"PGE launches (fwd keeping the workspace, bwd, fwd without) "
+             f"{got}, expected {(outer, outer, nograd)}")
+
+
+def run_ind_gcond(K, SB, SG, ds, tmp: str, epochs: int, n_syn: int,
+                  nhid: int, model: str, run_eval: int) -> tuple:
+    """GCond at the twin's paper config through create_reducer, ``epochs``
+    epochs (the last profiled, a checkpoint at the one before), then the
+    ``model`` evaluation on the test subgraph.  Returns the result line
+    and the launches of the reduce and the evaluation."""
+    import torch
+
+    from graphslim_tpu_torch.eval import Evaluator
+    from graphslim_tpu_torch.reduce import create_reducer
+
+    args = ind_args(ds.name, "gcond", os.path.join(tmp, ds.name), run_eval,
+                    checkpoints=(epochs - 2,), init="random", epochs=epochs,
+                    eval_model=model)
+    torch.cuda.reset_peak_memory_stats()
+    eng = create_reducer("gcond", ds, args)
+    if (eng.n_syn, args.hidden, eng.pge.cfg.nhid) != (n_syn, 256, nhid) \
+            or eng.fanouts != ((15, 8) if ds.name in ("flickr", "reddit")
+                               else (10, 5)):
+        fail(f"gcond {ds.name}: n_syn {eng.n_syn}, hidden {args.hidden}, "
+             f"PGE nhid {eng.pge.cfg.nhid}, fanouts {eng.fanouts}")
+    if int(eng.real.pools.max()) >= len(ds.idx_train):
+        fail(f"gcond {ds.name}: a pool id is not local to the train "
+             f"subgraph")
+    steps = Stamps(eng, "match_loss_total")
+    inference = Counter(eng, "inference_adj")
+    inner = Counter(eng, "inner_adj")
+    timer = EpochTimer(eng, K, SB, profile_at=epochs - 1)
+    count = Launches(K, SB, SG)
+    t0 = time.perf_counter()
+    red = eng.reduce(ds)
+    torch.cuda.synchronize()
+    t_red = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = count.since()
+    outer = len(steps.seconds)
+    if outer != epochs * args.outer_loop or inner.n != outer:
+        fail(f"gcond {ds.name}: {outer} outer steps, {inner.n} inner_adj")
+    pge_rule(launches, outer, inference.n)
+    losses = [float(x) for x in eng.epoch_loss_sums]
+    if not all(math.isfinite(x) for x in losses) or \
+            not torch.isfinite(red.feat).all() or \
+            not torch.isfinite(red.adj).all():
+        fail(f"gcond {ds.name}: non-finite result (losses {losses})")
+    # the outer steps of the unprofiled epochs past the first two steps
+    ol = args.outer_loop
+    at = steps.at[2:(epochs - 1) * ol]
+    rate = (len(at) - 1) / (at[-1] - at[0])
+    busy = sum(timer.kernels.values())
+    wall_unprof = ol / rate
+    count = Launches(K, SB, SG)
+    t0 = time.perf_counter()
+    (acc, std), _ = Evaluator(ds, args).evaluate(red, model)
+    torch.cuda.synchronize()
+    t_eval = time.perf_counter() - t0
+    if not (math.isfinite(acc) and 0.0 <= acc <= 1.0):
+        fail(f"gcond {ds.name}: {args.metric} {acc}")
+    line = (f"gcond {ds.name} (ind, r={args.reduction_rate}, {args.outer_loop}"
+            f" outer x {args.inner_loop} inner, ntrans {args.ntrans}, lr "
+            f"{args.lr_feat}/{args.lr_adj}, fanouts {list(eng.fanouts)}, "
+            f"{epochs} epochs): n_syn {eng.n_syn}, PGE nhid "
+            f"{eng.pge.cfg.nhid}, reduce {t_red:.2f} s, {rate:.3f} outer "
+            f"steps/s (steps 2-{(epochs - 1) * ol - 1}, unprofiled), "
+            f"launches {launches}, peak {peak:.2f} GiB, profiled epoch "
+            f"{epochs - 1}: busy {busy:.1f} ms, idle share "
+            f"{1 - busy / (1e3 * wall_unprof):.3f} (1 - busy / the "
+            f"unprofiled epoch's wall); losses "
+            f"{[round(x / (eng.nclass * ol), 5) for x in losses]}; evaluate "
+            f"{model} {args.run_eval} seeds x 300 epochs on the test "
+            f"subgraph {t_eval:.2f} s (launches {count.since()}), "
+            f"{args.metric} {acc:.4f} ± {std:.4f}")
+    return line, launches, count.since()
+
+
+# Phase 12's other reducers on the flickr twin, with their depth cuts and
+# the hook whose call is profiled: ``_epoch`` (the last epoch; the rate from
+# the others), a named call of each outer step (SimGC's whole step; SFGC's
+# and GEOM's unrolled forward, under a device-only trace: the rate from
+# the calls' start times), the call numbered profiled; or None (the whole
+# reduce).  A checkpoint runs after the last epoch.
+FLICKR_RUNS = [
+    ("random", {}, None), ("kcenter_sample", {}, None),
+    ("herding", {}, None), ("herding", {"agg": True}, None),
+    ("cent_d", {}, None), ("cent_p", {}, None),
+    ("doscond", {"epochs": 3}, "_epoch"),
+    ("gcondx", {"epochs": 3}, "_epoch"),
+    ("doscondx", {"epochs": 3}, "_epoch"),
+    ("gcdm", {"epochs": 3}, "_epoch"), ("gcdmx", {"epochs": 3}, "_epoch"),
+    ("sgdd", {"epochs": 2}, "_epoch"),
+    ("clustering", {}, None), ("clustering", {"agg": True}, None),
+    ("averaging", {}, None), ("vng", {"condense_model": "GCN"}, None),
+    ("msgc", {"epochs": 3}, "_epoch"), ("mirage", {}, None),
+    ("gecc", {}, None), ("gcsntk", {"epochs": 2}, None),
+    ("simgc", {"epochs": 19}, ("step", 10)),
+    ("sfgc", {"epochs": 3}, ("match_loss", 1)),
+    ("geom", {"epochs": 3}, ("geom_loss", 1)),
+    ("gdem", {"epochs": 4}, None),
+]
+
+
+def expert_cut(args) -> dict:
+    """SFGC's and GEOM's buffer cut to 2 experts of 40 epochs, the expert,
+    start and curriculum epochs scaled alike (phase 11's rule)."""
+    scale = 40 / args.teacher_epochs
+    cut = dict(num_experts=2, teacher_epochs=40,
+               expert_epochs=max(round(args.expert_epochs * scale), 10))
+    if args.method == "sfgc":
+        cut["start_epoch"] = max(round(args.start_epoch * scale), 10)
+    else:
+        cut.update(T=max(round(args.T * scale), 1),
+                   max_start_epoch=max(round(args.max_start_epoch * scale),
+                                       1),
+                   max_start_epoch_s=max(round(args.max_start_epoch_s
+                                               * scale), 1))
+    return cut
+
+
+def run_ind(K, SB, SG, tmp: str, stats: dict) -> dict:
+    """Phase 12: the inductive setting at full width.  Each twin's train
+    subgraph first holds the blocked SpMM at the phase's widths
+    (``compare_spmm_ind``).  flickr: GCond at its paper config (3 epochs)
+    with SGC evaluation on the test subgraph, kcenter with GCN, then every
+    other ported reducer once at cut depth; reddit: GCond (2 of its 1000
+    epochs) with SGC evaluation; yelp: GCond with GCN evaluation scored by
+    macro F1.  Every run's launches are counted from 0 (``Launches``);
+    returns each kernel's launches over the phase's runs."""
+    import numpy as np
+    import torch
+
+    from graphslim_tpu_torch.eval import Evaluator
+    from graphslim_tpu_torch.reduce import create_reducer
+
+    totals = {"pge_fwd": 0, "pge_bwd": 0, "spmm_blocked": 0,
+              "smem_gather": 0}
+
+    def add(launches: dict) -> None:
+        for k, v in launches.items():
+            if k.startswith("pge_fwd"):
+                totals["pge_fwd"] += v
+            elif k == "pge_bwd":
+                totals["pge_bwd"] += v
+            elif k == "gather":
+                totals["smem_gather"] += v
+            else:
+                totals["spmm_blocked"] += v
+
+    for mod in (K, SB, SG):
+        mod.reset_launches()
+
+    # --- flickr ----------------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    flickr, _ = load_ind_twin("flickr")
+    compare_spmm_ind(SB, flickr, stats)
+    n_train = len(flickr.idx_train)
+    line, red_l, ev_l = run_ind_gcond(K, SB, SG, flickr, tmp, 3, 713, 256,
+                                      "SGC", 3)
+    add(red_l)
+    add(ev_l)
+    log(line)
+
+    def reduce_once(method, cut, hook, run_eval=1):
+        save = os.path.join(tmp, "flickr", method + ("_agg" if cut.get("agg")
+                                                    else ""))
+        base = ind_args("flickr", method, save, run_eval)
+        if method in ("sfgc", "geom"):
+            cut = dict(cut, **expert_cut(base))
+        ckpt = (cut["epochs"] - 1,) if "epochs" in cut else ()
+        args = ind_args("flickr", method, save, run_eval, ckpt, **cut)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng = create_reducer(method, flickr, args)
+        timer = stamps = None
+        if hook == "_epoch":
+            timer = EpochTimer(eng, K, SB, profile_at=args.epochs - 1)
+        elif hook is not None:
+            stamps = Stamps(eng, hook[0], profile_at=hook[1],
+                            device_only=hook[0] != "step")
+        count = Launches(K, SB, SG)
+        t0 = time.perf_counter()
+        if hook is None:
+            red, wall, busy = busy_ms(lambda: eng.reduce(flickr))
+        else:
+            red = eng.reduce(flickr)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        t_red = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = count.since()
+        adj = red.adj if isinstance(red.adj, torch.Tensor) else None
+        if not torch.isfinite(red.feat).all() or \
+                not torch.isfinite(red.labels.float()).all() or \
+                (adj is not None and not torch.isfinite(adj).all()):
+            fail(f"{method} flickr: non-finite reduced graph")
+        if timer is not None:
+            busy = sum(timer.kernels.values())
+            unprof = timer.seconds[:-1]
+            steps_per_epoch = max(getattr(args, "outer_loop", 1), 1)
+            rate = f"{steps_per_epoch * len(unprof) / sum(unprof):.3f} " \
+                f"outer steps/s (epochs 0-{len(unprof) - 1}, unprofiled)"
+            idle = 1 - busy / (1e3 * sum(unprof) / len(unprof))
+            how = f"profiled epoch {args.epochs - 1}"
+        elif stamps is not None:
+            busy = sum(stamps.kernels.values())
+            if hook[0] == "step":      # the whole step: its own seconds
+                secs = [x for i, x in enumerate(stamps.seconds)
+                        if i not in (hook[1], hook[1] + 1)]
+            else:                      # from one call's start to the next
+                at = stamps.at
+                secs = [b - a for i, (a, b) in enumerate(zip(at, at[1:]))
+                        if i != hook[1]]
+            rate = f"{len(secs) / sum(secs):.3f} outer steps/s (steps " \
+                f"less the profiled one)"
+            idle = 1 - busy / (1e3 * stamps.seconds[hook[1]])
+            how = f"profiled {hook[0]} call {hook[1]} (its own wall)"
+        else:
+            rate = "n/a"
+            idle = 1 - busy / (1e3 * wall)
+            how = "profiled reduce (device trace; wall under it)"
+        count = Launches(K, SB, SG)
+        t0 = time.perf_counter()
+        (acc, std), _ = Evaluator(flickr, args).evaluate(red, "GCN")
+        torch.cuda.synchronize()
+        t_eval = time.perf_counter() - t0
+        if not math.isfinite(acc):
+            fail(f"{method} flickr: accuracy {acc}")
+        ev = count.since()
+        add(launches)
+        add(ev)
+        tag = method + (" --agg" if cut.get("agg") else "")
+        return eng, red, (
+            f"{tag} flickr (ind, r={args.reduction_rate}, cut "
+            f"{ {k: v for k, v in cut.items() if k != 'agg'} }): n_syn "
+            f"{red.feat.shape[0]}, reduce {t_red:.2f} s, {rate}, launches "
+            f"{launches}, peak {peak:.2f} GiB, {how}: busy {busy:.1f} ms, "
+            f"idle share {idle:.3f}; evaluate GCN {args.run_eval} seed(s) "
+            f"x 300 epochs {t_eval:.2f} s (launches {ev}), accuracy "
+            f"{acc:.4f}")
+
+    # kcenter: a GCN fit on the train subgraph, gathers on local pools
+    eng, red, line = reduce_once("kcenter", {}, None, run_eval=3)
+    if int(eng.pool_idx.max()) >= n_train or eng.embed_model[2] is not \
+            flickr.view_norm("train"):
+        fail("kcenter flickr: pools not local to the train subgraph")
+    if "gather" not in line:
+        fail("kcenter flickr: no row gather launched")
+    log(line + f"; embedding GCN best val (on the train subgraph) "
+        f"{float(eng.embed_model[3]):.4f}")
+    del eng, red
+    for method, cut, hook in FLICKR_RUNS:
+        eng, red, line = reduce_once(method, cut, hook)
+        log(line)
+        del eng, red
+    peak_flickr = torch.cuda.max_memory_allocated() / 2 ** 30
+    del flickr
+    torch.cuda.empty_cache()
+
+    # --- reddit ----------------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    reddit, _ = load_ind_twin("reddit")
+    compare_spmm_ind(SB, reddit, stats)
+    line, red_l, ev_l = run_ind_gcond(K, SB, SG, reddit, tmp, 2, 186, 256,
+                                      "SGC", 3)
+    add(red_l)
+    add(ev_l)
+    log(line + f"; peak device memory of the reddit twin's phase "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    del reddit
+    torch.cuda.empty_cache()
+
+    # --- yelp: macro F1 ---------------------------------------------------
+    yelp, _ = load_ind_twin("yelp")
+    compare_spmm_ind(SB, yelp, stats)
+    line, red_l, ev_l = run_ind_gcond(K, SB, SG, yelp, tmp, 2, 36, 128,
+                                      "GCN", 3)
+    if "f1_macro" not in line:
+        fail("yelp: not scored by macro F1")
+    add(red_l)
+    add(ev_l)
+    labels = yelp.labels_test.cpu().numpy()
+    log(line + f"; the test subgraph's largest class holds "
+        f"{np.bincount(labels).max() / labels.shape[0]:.4f} of its rows")
+    del yelp
+    torch.cuda.empty_cache()
+    log(f"phase 12 kernel launches: {totals}; flickr peak device memory "
+        f"{peak_flickr:.2f} GiB")
+    return totals
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=["kernels", "condense", "cluster",
-                                       "distill"],
+                                       "distill", "ind"],
                     default=None)
     opts = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "graphslim_tpu_torch")):
@@ -1908,6 +2443,10 @@ def main() -> None:
     from graphslim_tpu_torch.data import load, read_npz
     from graphslim_tpu_torch.eval import Evaluator
 
+    if opts.only == "ind":
+        with tempfile.TemporaryDirectory() as tmp:
+            run_ind(K, SB, SG, tmp, {})
+        return
     t0 = time.perf_counter()
     ds = load("ogbn-arxiv", seed=0, device="cuda")
     log(f"load ogbn-arxiv twin: {ds.n_nodes} nodes, {ds.adj.nnz} edges, "
@@ -1931,6 +2470,12 @@ def main() -> None:
     compare_spmm_small(SB, G)
     compare_spmm_arxiv(SB, ds, stats)
     if opts.only == "kernels":
+        # the full run holds these in phase 12, on the twins it loads there
+        for name in IND_SPMM_WIDTHS:
+            twin, _ = load_ind_twin(name)
+            compare_spmm_ind(SB, twin, stats)
+            del twin
+            torch.cuda.empty_cache()
         return
 
     # --- phase 4 ---------------------------------------------------------
@@ -1982,6 +2527,11 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         dist = run_distillers(K, SB, SG, ds, tmp, stats)
 
+    # --- phase 12 --------------------------------------------------------
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ind = run_ind(K, SB, SG, tmp, stats)
+
     src = "graphslim_tpu_torch/csrc/"
     kernels = [
         # ms: the launch kind that keeps the workspace (syn_adj_norm);
@@ -1989,24 +2539,26 @@ def main() -> None:
         dict(name="pge_fwd", route="cuda", source=src + "pge_kernels.cuh",
              replaces="graphslim_tpu/kernels/pallas_pge.py:74",
              launches=launches["pge_fwd"] + cond["pge_fwd"]
-             + dist["pge_fwd"],
+             + dist["pge_fwd"] + ind["pge_fwd"],
              library_ms=None, **stats["pge_fwd"]),
         dict(name="pge_bwd", route="cuda", source=src + "pge_kernels.cuh",
              replaces="graphslim_tpu/kernels/pallas_pge.py:165",
              launches=launches["pge_bwd"] + cond["pge_bwd"]
-             + dist["pge_bwd"],
+             + dist["pge_bwd"] + ind["pge_bwd"],
              library_ms=None, **stats["pge_bwd"]),
         # timed at the hidden width, where the coreset path spends most
         dict(name="spmm_blocked", route="cuda",
              source=src + "spmm_blocked.cu",
              replaces="graphslim_tpu/kernels/pallas_spmm_blocked.py:198",
              launches=core["spmm_blocked"] + cond["spmm_blocked"]
-             + clus["spmm_blocked"] + dist["spmm_blocked"],
+             + clus["spmm_blocked"] + dist["spmm_blocked"]
+             + ind["spmm_blocked"],
              **stats["spmm_blocked_d256"]),
         dict(name="smem_gather", route="cuda",
              source=src + "smem_gather.cu",
              replaces="benchmark/probe_spmm.py:82",
-             launches=core["smem_gather"] + dist["smem_gather"],
+             launches=core["smem_gather"] + dist["smem_gather"]
+             + ind["smem_gather"],
              **stats["smem_gather"]),
     ]
     for k in kernels:

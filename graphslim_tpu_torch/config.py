@@ -133,11 +133,15 @@ class Args:
         return dataclasses.replace(self, **kw)
 
 
-# Restricted to the twins the port loads (``data/loader.py``).
-REPRESENTATIVE_R = {"cora": 0.5, "ogbn-arxiv": 0.01}
+REPRESENTATIVE_R = {
+    "cora": 0.5, "citeseer": 0.5, "pubmed": 0.1, "flickr": 0.01,
+    "reddit": 0.001, "ogbn-arxiv": 0.01, "yelp": 0.001, "amazon": 0.002,
+    "synth-small": 0.25, "synth-ind-small": 0.25,
+}
 
-TRANS_DATASETS = {"cora", "ogbn-arxiv"}
-IND_DATASETS: set[str] = set()
+TRANS_DATASETS = {"cora", "citeseer", "pubmed", "ogbn-arxiv", "synth-small",
+                  "photo", "computers", "cs", "physics", "dblp"}
+IND_DATASETS = {"flickr", "reddit", "amazon", "yelp", "synth-ind-small"}
 
 # Synthetic twins inherit their real counterpart's method configs.
 _DATASET_ALIASES = {"synth-small": "cora", "synth-hard": "cora"}

@@ -1,10 +1,12 @@
 """Evaluator: train a fresh GNN on the reduced graph, test on the original.
 
-Counterpart of ``graphslim_tpu/eval/evaluator.py`` for SGC and GCN on
-transductive datasets.  The JAX package vmaps the seeded runs into one
-program; here they run one after another.  Sparse adjacencies (the full
-graph's, a coreset's subgraph) are passed as ``SparseAdj``, whose
-``matmul`` is the SpMM dispatch.
+Counterpart of ``graphslim_tpu/eval/evaluator.py`` for SGC and GCN.  The
+JAX package vmaps the seeded runs into one program; here they run one
+after another.  Transductive datasets validate and test on the full graph
+at the split's rows; inductive ones on the val and test subgraphs, every
+row, through their normalized adjacencies cached on the dataset
+(``Dataset.split_batch``).  Sparse adjacencies are passed as
+``SparseAdj``, whose ``matmul`` is the SpMM dispatch.
 """
 
 from __future__ import annotations
@@ -12,7 +14,6 @@ from __future__ import annotations
 import logging
 from typing import Optional
 
-import numpy as np
 import torch
 
 from graphslim_tpu_torch import graph as G
@@ -57,12 +58,6 @@ class Evaluator:
             adj_n = G.normalize_adj_dense(adj.to(dev))
         return red.feat.to(dev), adj_n, red.labels.to(dev)
 
-    def _full_tuple(self, idx: np.ndarray):
-        """The full graph with the labels of the rows in ``idx``."""
-        d = self.data
-        idx_t = torch.as_tensor(idx, device=d.device)
-        return (d.feat, d.adj_norm(), d.labels[idx_t], idx_t)
-
     def evaluate(self, reduced: G.Reduced, model_type: str = "GCN",
                  runs: Optional[int] = None, seed: Optional[int] = None,
                  verbose: bool = False):
@@ -72,8 +67,8 @@ class Evaluator:
         seed = seed if seed is not None else a.seed
         model = self._eval_model(model_type, reduced.feat.shape[-1])
         tx, tadj, ty = self._train_tuple(reduced, model_type)
-        val = self._full_tuple(self.data.idx_val)
-        test = self._full_tuple(self.data.idx_test)
+        val = self.data.split_batch("val")
+        test = self.data.split_batch("test")
         # a batch of skeleton graphs (MSGC) is not hoisted, as in the JAX
         # package
         plan = None if M.is_skeleton_batch(tadj) else hoist_plan(model)

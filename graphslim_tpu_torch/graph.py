@@ -37,6 +37,10 @@ class SparseAdj:
     val: Optional[torch.Tensor]  # [nnz] float32 or None
     _layouts: dict = dataclasses.field(default_factory=dict, repr=False,
                                        compare=False)
+    # the host mirror this adjacency was moved from, if any (layouts are
+    # built from it without a read-back)
+    _host: Optional["HostAdj"] = dataclasses.field(default=None, repr=False,
+                                                   compare=False)
 
     @property
     def n_rows(self) -> int:
@@ -141,35 +145,52 @@ class HostAdj(NamedTuple):
         return SparseAdj(
             indptr=t(self.indptr), row=t(self.row), col=t(self.col),
             val=None if self.val is None else torch.as_tensor(
-                np.asarray(self.val, dtype=np.float32), device=device))
+                np.asarray(self.val, dtype=np.float32), device=device),
+            _host=self)
 
 
 def host_of(adj: SparseAdj) -> HostAdj:
-    """Read a SparseAdj back to the host (small graphs only)."""
+    """The host mirror a SparseAdj was moved from, or its read-back."""
+    if adj._host is not None:
+        return adj._host
     return HostAdj(adj.indptr.cpu().numpy(), adj.row.cpu().numpy(),
                    adj.col.cpu().numpy(),
                    None if adj.val is None else adj.val.cpu().numpy())
 
 
+def _is_sorted(keys: np.ndarray) -> bool:
+    return keys.shape[0] < 2 or bool((keys[1:] >= keys[:-1]).all())
+
+
+def _indptr(row: np.ndarray, n: int) -> np.ndarray:
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(row, minlength=n), out=indptr[1:])
+    return indptr
+
+
 def host_gcn_norm(h: HostAdj) -> HostAdj:
-    """Self loops + symmetric normalization, entirely on host."""
+    """Self loops + symmetric normalization, entirely on host.  ``h`` is
+    (row, col)-sorted, as ``host_from_edge_index`` builds every adjacency;
+    the loops go in by insertion, leaving the entries in the order the JAX
+    package's stable sort gives them."""
     n = h.n_rows
     row, col, val = h.row, h.col, h.values_or_ones()
     off = row != col
-    row = np.concatenate([row[off], np.arange(n)])
-    col = np.concatenate([col[off], np.arange(n)])
-    val = np.concatenate([val[off].astype(np.float32),
-                          np.ones(n, dtype=np.float32)])
-    order = np.lexsort((col, row))
-    row, col, val = row[order], col[order], val[order]
-    deg = np.zeros(n, dtype=np.float64)
-    np.add.at(deg, row, val)
+    row, col = row[off], col[off]
+    val = val[off].astype(np.float32)
+    loop = np.arange(n)
+    keys = row * n + col
+    if not _is_sorted(keys):
+        raise ValueError("host_gcn_norm needs (row, col)-sorted entries")
+    at = np.searchsorted(keys, loop * n + loop)
+    row, col = np.insert(row, at, loop), np.insert(col, at, loop)
+    val = np.insert(val, at, np.float32(1.0))
+    # bincount sums in the entries' order in float64, as np.add.at does
+    deg = np.bincount(row, weights=val, minlength=n)
     with np.errstate(divide="ignore"):
         dinv = np.where(deg > 0, deg ** -0.5, 0.0)
     vn = (val * dinv[row] * dinv[col]).astype(np.float32)
-    indptr = np.zeros(n + 1, dtype=np.int64)
-    np.add.at(indptr, row + 1, 1)
-    return HostAdj(np.cumsum(indptr), row, col, vn)
+    return HostAdj(_indptr(row, n), row, col, vn)
 
 
 def host_from_edge_index(edge_index: np.ndarray, n_nodes: int,
@@ -192,15 +213,13 @@ def host_from_edge_index(edge_index: np.ndarray, n_nodes: int,
             np.add.at(wsum, inv, w)
             w = wsum
         row, col = uniq // n_nodes, uniq % n_nodes
-    else:
+    elif not _is_sorted(row * n_nodes + col):
         order = np.lexsort((col, row))
         row, col = row[order], col[order]
         if w is not None:
             w = w[order]
-    indptr = np.zeros(n_nodes + 1, dtype=np.int64)
-    np.add.at(indptr, row + 1, 1)
-    indptr = np.cumsum(indptr)
-    return HostAdj(indptr, row.astype(np.int64), col.astype(np.int64),
+    return HostAdj(_indptr(row, n_nodes), row.astype(np.int64),
+                   col.astype(np.int64),
                    None if w is None else w.astype(np.float32))
 
 
@@ -216,9 +235,8 @@ def from_edge_index(edge_index: np.ndarray, n_nodes: int,
     return (adj, host) if return_host else adj
 
 
-def submatrix(adj: HostAdj, idx: np.ndarray, device=None) -> SparseAdj:
-    """adj[np.ix_(idx, idx)] — induced subgraph (host-side), on the CUDA
-    card unless ``device`` says otherwise."""
+def host_submatrix(adj: HostAdj, idx: np.ndarray) -> HostAdj:
+    """adj[np.ix_(idx, idx)] — induced subgraph, on the host."""
     idx = np.asarray(idx)
     lookup = -np.ones(adj.n_rows, dtype=np.int64)
     lookup[idx] = np.arange(idx.shape[0])
@@ -227,8 +245,14 @@ def submatrix(adj: HostAdj, idx: np.ndarray, device=None) -> SparseAdj:
     keep = (row >= 0) & (col >= 0)
     ei = np.stack([row[keep], col[keep]])
     w = None if adj.val is None else np.asarray(adj.val)[keep]
-    return from_edge_index(ei, idx.shape[0], edge_weight=w, dedup=False,
-                           device=device)
+    return host_from_edge_index(ei, idx.shape[0], edge_weight=w,
+                                dedup=False)
+
+
+def submatrix(adj: HostAdj, idx: np.ndarray, device=None) -> SparseAdj:
+    """adj[np.ix_(idx, idx)] — induced subgraph (host-side), on the CUDA
+    card unless ``device`` says otherwise."""
+    return host_submatrix(adj, idx).to_sparse(resolve_device(device))
 
 
 def add_self_loops(adj: HostAdj, fill_value: float = 1.0) -> HostAdj:
@@ -303,7 +327,10 @@ class Reduced:
 
 @dataclasses.dataclass
 class Dataset:
-    """Full-graph dataset (transductive views only in this slice)."""
+    """Full-graph dataset and, in the inductive setting, the induced train,
+    val and test subgraphs (``feat_/labels_/adj_`` + split).  Normalized
+    adjacencies are built on the host once and cached with their device
+    copies, so a blocked layout cached on one is built once per dataset."""
 
     name: str
     feat: torch.Tensor          # [n, d] float32
@@ -314,8 +341,22 @@ class Dataset:
     idx_test: np.ndarray
     nclass: int
     setting: str = "trans"
+    # inductive views (set by data.load for setting='ind')
+    feat_train: Optional[torch.Tensor] = None
+    labels_train: Optional[torch.Tensor] = None
+    adj_train: Optional[SparseAdj] = None
+    feat_val: Optional[torch.Tensor] = None
+    labels_val: Optional[torch.Tensor] = None
+    adj_val: Optional[SparseAdj] = None
+    feat_test: Optional[torch.Tensor] = None
+    labels_test: Optional[torch.Tensor] = None
+    adj_test: Optional[SparseAdj] = None
     adj_host: Optional[HostAdj] = dataclasses.field(default=None,
                                                     repr=False)
+    # per view: its normalized host mirror and normalized device adjacency
+    _view_norm_host: dict = dataclasses.field(default_factory=dict,
+                                              repr=False)
+    _view_norm: dict = dataclasses.field(default_factory=dict, repr=False)
     _adj_norm: Optional[SparseAdj] = dataclasses.field(default=None,
                                                        repr=False)
     _adj_norm_host: Optional[HostAdj] = dataclasses.field(default=None,
@@ -336,9 +377,7 @@ class Dataset:
     def adj_norm_host(self) -> HostAdj:
         """Cached host-side normalized adjacency (NumPy)."""
         if self._adj_norm_host is None:
-            host = self.adj_host if self.adj_host is not None \
-                else host_of(self.adj)
-            self._adj_norm_host = host_gcn_norm(host)
+            self._adj_norm_host = host_gcn_norm(host_of(self.adj))
         return self._adj_norm_host
 
     def adj_norm(self) -> SparseAdj:
@@ -349,10 +388,94 @@ class Dataset:
             self._adj_norm = self.adj_norm_host().to_sparse(self.device)
         return self._adj_norm
 
+    def set_view(self, split: str, feat: torch.Tensor,
+                 labels: torch.Tensor, host: HostAdj) -> None:
+        """Install the induced subgraph of ``split`` (train | val | test)
+        from its host mirror; the adjacency moves to the device once and
+        keeps the mirror."""
+        setattr(self, f"feat_{split}", feat)
+        setattr(self, f"labels_{split}", labels)
+        setattr(self, f"adj_{split}", host.to_sparse(self.device))
+
+    def view_host(self, split: str) -> HostAdj:
+        """Raw host mirror of the ``split`` subgraph's adjacency."""
+        return host_of(getattr(self, f"adj_{split}"))
+
+    def view_norm_host(self, split: str) -> HostAdj:
+        """Cached host-side normalized adjacency of the ``split``
+        subgraph."""
+        if split not in self._view_norm_host:
+            self._view_norm_host[split] = host_gcn_norm(
+                self.view_host(split))
+        return self._view_norm_host[split]
+
+    def view_norm(self, split: str) -> SparseAdj:
+        """Cached GCN-normalized adjacency of the ``split`` subgraph on the
+        dataset's device (the JAX evaluator normalizes it at every call)."""
+        if split not in self._view_norm:
+            self._view_norm[split] = self.view_norm_host(split).to_sparse(
+                self.device)
+        return self._view_norm[split]
+
+    def train_graph(self) -> tuple:
+        """(feat, adj, labels) that reducers consume: the full graph, or
+        the train subgraph in the inductive setting."""
+        if self.setting == "ind":
+            return self.feat_train, self.adj_train, self.labels_train
+        return self.feat, self.adj, self.labels
+
+    def train_host(self) -> HostAdj:
+        """Raw host mirror of the graph reducers consume."""
+        return host_of(self.train_graph()[1])
+
+    def train_norm_host(self) -> HostAdj:
+        """Normalized host mirror of the graph reducers consume."""
+        if self.setting == "ind":
+            return self.view_norm_host("train")
+        return self.adj_norm_host()
+
+    def train_norm(self) -> SparseAdj:
+        """Normalized device adjacency of the graph reducers consume."""
+        if self.setting == "ind":
+            return self.view_norm("train")
+        return self.adj_norm()
+
+    def pool_ids(self) -> np.ndarray:
+        """Rows of the train pool in the graph reducers consume: global
+        ``idx_train`` ids, or local ids of the train subgraph."""
+        if self.setting == "ind":
+            return np.arange(len(self.idx_train))
+        return np.asarray(self.idx_train)
+
+    def split_batch(self, split: str) -> tuple:
+        """``(x, adj_normalized, y, idx)`` of a split (train | val | test)
+        for the trainer: the full graph at ``idx_<split>``, or in the
+        inductive setting the split's own subgraph, every row
+        (``idx=None``)."""
+        if self.setting == "ind":
+            return (getattr(self, f"feat_{split}"), self.view_norm(split),
+                    getattr(self, f"labels_{split}"), None)
+        idx = torch.as_tensor(getattr(self, f"idx_{split}"),
+                              device=self.device)
+        return self.feat, self.adj_norm(), self.labels[idx], idx
+
+    def pool_subgraph(self) -> SparseAdj:
+        """Raw adjacency among the train pool's rows: the train subgraph,
+        induced from the full graph in the transductive setting."""
+        if self.setting == "ind":
+            return self.adj_train
+        return submatrix(host_of(self.adj), self.idx_train,
+                         device=self.device)
+
+    def pool_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The train pool's rows of ``x``, a per-node tensor over the
+        graph reducers consume (in the inductive setting, all of them)."""
+        if self.setting == "ind":
+            return x
+        return x[torch.as_tensor(self.idx_train, device=x.device)]
+
     def labels_for_reduction(self) -> np.ndarray:
         """Host labels of the pool reducers draw from (the train split)."""
         if self.setting == "ind":
-            raise NotImplementedError(
-                "inductive datasets are not ported yet (ROADMAP.md, "
-                "queue 1, item 1)")
+            return self.labels_train.cpu().numpy()
         return self.labels.cpu().numpy()[self.idx_train]

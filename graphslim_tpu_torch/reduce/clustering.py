@@ -9,7 +9,8 @@ as the initializers of the condensation methods (``--init clustering`` or
 
 ClusterAgg clusters the ``Â²X``-aggregated features: two products with the
 dataset's cached normalized adjacency (on the card: two blocked-SpMM
-launches at the feature width).  The initial centroid rows of each class
+launches at the feature width; the train subgraph's in the inductive
+setting).  The initial centroid rows of each class
 come from :meth:`Cluster.init_rows`, drawn from a ``torch.Generator``
 seeded with ``args.seed``.
 """
@@ -51,12 +52,13 @@ class Cluster(Reducer):
         return random_rows(n, k, gen)
 
     def _train_feats(self, data: G.Dataset) -> torch.Tensor:
-        """The training rows of ``X``, or of ``Â²X`` for the agg variant."""
-        idx = torch.as_tensor(data.idx_train, device=data.device)
+        """The training rows of ``X``, or of ``Â²X`` for the agg variant
+        (the train subgraph's, every row, in the inductive setting)."""
+        feat = data.train_graph()[0]
         if self.use_agg:
-            norm = data.adj_norm()
-            return norm.matmul(norm.matmul(data.feat))[idx]
-        return data.feat[idx]
+            norm = data.train_norm()
+            feat = norm.matmul(norm.matmul(feat))
+        return data.pool_rows(feat)
 
     def _class_feat(self, c: int, x_c: torch.Tensor, n_c: int,
                     gen: torch.Generator) -> torch.Tensor:

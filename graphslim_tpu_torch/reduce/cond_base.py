@@ -132,22 +132,24 @@ class CondensationBase(Reducer):
         self.nclass = data.nclass
         self.gen = utils.make_generator(args.seed, dev)
 
-        # the sampler's layout of the normalized adjacency (from the host
-        # mirror: no device readback)
-        tables = packed_csr_of_norm(data.adj_norm_host(), dev)
+        # the real graph: the full graph, or the train subgraph in the
+        # inductive setting (pools then hold its local ids); the sampler's
+        # layout of its normalized adjacency comes from the host mirror
+        # (no device readback)
+        features, _, labels_real = data.train_graph()
+        tables = packed_csr_of_norm(data.train_norm_host(), dev)
 
         # per-class pools (padded)
         self.classes = sorted(self.budgets.keys())
-        pool_base = np.asarray(data.idx_train)
-        pool_labels = data.labels.cpu().numpy()[pool_base]
-        pools = [pool_base[pool_labels == c] for c in self.classes]
+        pool_base = data.pool_ids()
+        pools = [pool_base[labels_pool == c] for c in self.classes]
         max_n = max(len(p) for p in pools)
         pool_pad = np.zeros((len(self.classes), max_n), dtype=np.int64)
         for i, p in enumerate(pools):
             pool_pad[i, :len(p)] = p
         self.batch = int(min(self.sample_batch, max_n))
         self.real = RealTensors(
-            features=data.feat, labels_real=data.labels,
+            features=features, labels_real=labels_real,
             pools=torch.as_tensor(pool_pad, device=dev),
             pool_counts=torch.as_tensor([len(p) for p in pools],
                                         dtype=torch.int64, device=dev),
@@ -248,10 +250,11 @@ class CondensationBase(Reducer):
 
     @property
     def adj_norm_full(self) -> G.SparseAdj:
-        """The full graph's normalized adjacency on the device (GCDM's real
-        embeddings); cached on the dataset with its blocked layout, so on
-        the card every product with it launches the blocked SpMM."""
-        return self.data.adj_norm()
+        """The real graph's normalized adjacency on the device (the full
+        graph's, or the train subgraph's in the inductive setting); cached
+        on the dataset with its blocked layout, so on the card every
+        product with it launches the blocked SpMM."""
+        return self.data.train_norm()
 
     def syn_adj_norm(self, pge_params: dict, feat_syn: torch.Tensor):
         """Normalized synthetic adjacency; ``None`` (the identity, which
@@ -308,7 +311,7 @@ class CondensationBase(Reducer):
             _, bv, _ = M.fit_with_val(
                 model, utils.make_generator(args.seed + s, self.data.device),
                 train=(tx, tadj, ty, None),
-                val=ev._full_tuple(self.data.idx_val), cfg=cfg)
+                val=self.data.split_batch("val"), cfg=cfg)
             accs.append(float(bv))
         mean_val = float(np.mean(accs))
         log.info("checkpoint it=%d loss=%.4f val=%.4f (best %.4f)", it,

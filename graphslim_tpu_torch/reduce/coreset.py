@@ -3,8 +3,10 @@
 Counterpart of ``graphslim_tpu/reduce/coreset.py``: model-based variants
 select on the embeddings of a GCN trained on the whole graph, model-free
 ones on raw or ``Â(ÂX)``-aggregated features, the centrality ones on degree
-or PageRank.  Random's selection is NumPy-seeded exactly as there, so both
-packages pick the same nodes.
+or PageRank.  In the inductive setting all of it runs on the train
+subgraph, whose local ids the pools and the selection hold.  Random's
+selection is NumPy-seeded exactly as there, so both packages pick the
+same nodes.
 
 The greedy loops (k-center farthest point, herding mean matching) are
 Python loops over device tensors, the JAX package's ``lax.fori_loop``s step
@@ -121,9 +123,11 @@ class CoreSetBase(Reducer):
                 labels_pool, args.reduction_rate)
             self.labels_syn_override = None
         self.labels_pool = labels_pool
-        self.pool_idx = np.asarray(data.idx_train)
-        # the full-graph GCN of the model-based variants and its best
-        # validation accuracy, kept for inspection
+        # pool = the train split: global ids, or local ids of the train
+        # subgraph in the inductive setting
+        self.pool_idx = data.pool_ids()
+        # the GCN of the model-based variants and its best validation
+        # accuracy, kept for inspection
         self.embed_model = None
 
     def select_class(self, feats: torch.Tensor, cnt: int,
@@ -131,31 +135,34 @@ class CoreSetBase(Reducer):
         raise NotImplementedError
 
     def _embeddings(self, data: G.Dataset, verbose: bool) -> torch.Tensor:
-        """Features to select on: raw, aggregated, or GCN embeddings.  The
-        normalized adjacency is the dataset's cached one, so its blocked
-        layout is built once and shared with the evaluator."""
+        """Features to select on: raw, aggregated, or GCN embeddings, over
+        the graph reducers consume.  The normalized adjacency is the
+        dataset's cached one, so its blocked layout is built once and
+        shared with the evaluator.  In the inductive setting the GCN
+        trains on the train subgraph and validates on that same graph, as
+        the JAX package does."""
+        feat, _, labels = data.train_graph()
+        norm = data.train_norm()
         if self.needs_model:
             cfg = M.ModelConfig(nfeat=data.n_feat, nhid=self.args.hidden,
                                 nclass=data.nclass, nlayers=2, dropout=0.0)
             model = M.get_model("GCN", cfg)
-            norm = data.adj_norm()
-            idx = torch.as_tensor(data.idx_train, device=data.device)
-            vidx = torch.as_tensor(data.idx_val, device=data.device)
+            train = data.split_batch("train")
+            val = train if data.setting == "ind" \
+                else data.split_batch("val")
             params, best_val, _ = M.fit_with_val(
                 model, utils.make_generator(self.args.seed, data.device),
-                train=(data.feat, norm, data.labels[idx], idx),
-                val=(data.feat, norm, data.labels[vidx], vidx),
+                train=train, val=val,
                 cfg=M.TrainConfig(epochs=self.args.eval_epochs,
                                   lr=self.args.lr or 0.01,
                                   weight_decay=5e-4,
                                   metric=self.args.metric))
             self.embed_model = (model, params, norm, best_val)
             with torch.no_grad():
-                return model.apply(params, data.feat, norm)
+                return model.apply(params, feat, norm)
         if self.use_agg:
-            norm = data.adj_norm()
-            return norm.matmul(norm.matmul(data.feat))
-        return data.feat
+            return norm.matmul(norm.matmul(feat))
+        return feat
 
     def _reduce(self, data: G.Dataset, verbose: bool) -> G.Reduced:
         embeds = self._embeddings(data, verbose)
@@ -179,16 +186,15 @@ class CoreSetBase(Reducer):
         else:
             idx_selected = np.concatenate(list(selected_by_class.values()))
         idx_t = torch.as_tensor(idx_selected, device=data.device)
+        feat, _, labels = data.train_graph()
         if self.use_agg:
             # aggregated variants keep Â²X features, identity structure
             return G.Reduced(feat=gather_rows(embeds, idx_t), adj=None,
-                             labels=data.labels[idx_t])
-        host = data.adj_host if data.adj_host is not None \
-            else G.host_of(data.adj)
-        return G.Reduced(feat=gather_rows(data.feat, idx_t),
-                         adj=G.submatrix(host, idx_selected,
+                             labels=labels[idx_t])
+        return G.Reduced(feat=gather_rows(feat, idx_t),
+                         adj=G.submatrix(data.train_host(), idx_selected,
                                          device=data.device),
-                         labels=data.labels[idx_t])
+                         labels=labels[idx_t])
 
 
 class Random(CoreSetBase):
@@ -231,7 +237,7 @@ class CentD(CoreSetBase):
     """Top-k degree per class (reference ``cent_degree.py:6-27``)."""
 
     def _reduce(self, data, verbose):
-        self._deg = data.adj.sum_rows().cpu().numpy()
+        self._deg = data.train_graph()[1].sum_rows().cpu().numpy()
         return super()._reduce(data, verbose)
 
     def select_class(self, feats, cnt, pool_global):
@@ -242,7 +248,7 @@ class CentP(CoreSetBase):
     """Top-k PageRank per class (reference ``cent_pagerank.py:8-55``)."""
 
     def _reduce(self, data, verbose):
-        self._pr = pagerank(data.adj).cpu().numpy()
+        self._pr = pagerank(data.train_graph()[1]).cpu().numpy()
         return super()._reduce(data, verbose)
 
     def select_class(self, feats, cnt, pool_global):

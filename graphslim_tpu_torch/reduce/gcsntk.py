@@ -62,15 +62,12 @@ class GCSNTK(CondensationBase):
         ``E_t`` is the batch's dense block of the train subgraph plus the
         identity."""
         dev = data.device
-        idx = np.asarray(data.idx_train)
-        n_tr = idx.shape[0]
-        idx_t = torch.as_tensor(idx, device=dev)
-        feat_tr = data.feat[idx_t]
+        n_tr = len(data.idx_train)
+        feat_tr = data.pool_rows(self.real.features)
         onehot = torch.nn.functional.one_hot(
-            data.labels[idx_t], data.nclass).to(torch.float32)
-        host = data.adj_host if data.adj_host is not None \
-            else G.host_of(data.adj)
-        sub = G.submatrix(host, idx, device=dev)
+            data.pool_rows(self.real.labels_real),
+            data.nclass).to(torch.float32)
+        sub = data.pool_subgraph()
         vals = sub.values_or_ones()
         k = -(-n_tr // _BATCH)
         assign = np.zeros(n_tr, dtype=np.int64) if k == 1 \

@@ -158,15 +158,15 @@ class GDEM(CondensationBase):
     def lcc_eigen(self, data: G.Dataset) -> tuple:
         """(LCC node ids, eigenvalues, eigenvectors) of the normalized
         Laplacian ``I − D^-1/2 (A + I) D^-1/2`` of the largest connected
-        component, cached under ``save_path/eigen/<dataset>``."""
+        component of the real graph (the train subgraph in the inductive
+        setting), cached under ``save_path/eigen/<dataset>``."""
         cache = os.path.join(self.args.save_path, "eigen", data.name)
         os.makedirs(cache, exist_ok=True)
         vp, up, ip = (os.path.join(cache, f) for f in (
             "eigenvalues.npy", "eigenvectors.npy", "idx_lcc.npy"))
         if os.path.exists(vp) and os.path.exists(up):
             return np.load(ip), np.load(vp), np.load(up)
-        host = data.adj_host if data.adj_host is not None \
-            else G.host_of(data.adj)
+        host = data.train_host()
         n = host.n_rows
         W = sp.csr_matrix((host.values_or_ones(), (host.row, host.col)),
                           shape=(n, n))
@@ -235,14 +235,14 @@ class GDEM(CondensationBase):
     def real_targets(self, data: G.Dataset, idx_lcc, vals, vecs) -> tuple:
         """(subspace covariance, class-embedding means) of the real LCC."""
         dev = data.device
-        x_lcc = data.feat[torch.as_tensor(idx_lcc, device=dev)]
+        x_lcc = self.real.features[torch.as_tensor(idx_lcc, device=dev)]
         co_real = subspace_covariance(vecs, x_lcc)
-        train = np.asarray(data.idx_train)
+        train = data.pool_ids()
         train_lcc = train[np.isin(train, idx_lcc)]
         onehot = np.zeros((idx_lcc.shape[0], self.nclass), dtype=np.float32)
         onehot[np.searchsorted(idx_lcc, train_lcc)] = np.eye(
             self.nclass, dtype=np.float32)[
-                data.labels.cpu().numpy()[train_lcc]]
+                self.real.labels_real.cpu().numpy()[train_lcc]]
         mean_real = embed_mean(vals, vecs, x_lcc,
                                torch.as_tensor(onehot, device=dev))
         return co_real, mean_real

@@ -63,11 +63,13 @@ class GECC(Reducer):
             + [0.5] * max(args.depth + 1 - 3, 0)
 
     def _aggregate(self, data: G.Dataset) -> torch.Tensor:
-        """The weighted hop mix over all nodes."""
+        """The weighted hop mix over all nodes of the graph reducers
+        consume (the train subgraph in the inductive setting)."""
         weights = self._hop_weights()
-        norm = data.adj_norm()
-        agg = weights[0] * data.feat
-        tmp = data.feat
+        feat = data.train_graph()[0]
+        norm = data.train_norm()
+        agg = weights[0] * feat
+        tmp = feat
         for hop in range(1, self.args.depth + 1):
             tmp = norm.matmul(tmp)
             agg = agg + weights[min(hop, len(weights) - 1)] * tmp
@@ -83,8 +85,8 @@ class GECC(Reducer):
         with the node count; with a fanout at or above the largest degree
         the estimate is exact."""
         weights = self._hop_weights()
-        feat, dev = data.feat, data.device
-        tables = packed_csr_of_norm(data.adj_norm_host(), dev)
+        feat, dev = data.train_graph()[0], data.device
+        tables = packed_csr_of_norm(data.train_norm_host(), dev)
         fanouts = [self.sample_fanout] * self.args.depth
         gen = utils.make_generator(self.args.seed, dev)
         parts = []
@@ -129,12 +131,10 @@ class GECC(Reducer):
     def _reduce(self, data: G.Dataset, verbose: bool) -> G.Reduced:
         args = self.args
         labels_tr = data.labels_for_reduction()
-        train_rows = np.asarray(data.idx_train)
-        if data.n_nodes > self.sample_threshold:
-            agg = self._aggregate_sampled(data, train_rows)
+        if data.train_graph()[0].shape[0] > self.sample_threshold:
+            agg = self._aggregate_sampled(data, data.pool_ids())
         else:
-            agg = self._aggregate(data)[torch.as_tensor(train_rows,
-                                                        device=data.device)]
+            agg = data.pool_rows(self._aggregate(data))
         labels_syn = np.asarray(self.labels_syn)
         x_syn = agg.new_zeros((labels_syn.shape[0], agg.shape[1]))
         gen = utils.make_generator(args.seed, data.device)

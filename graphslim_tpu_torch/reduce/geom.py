@@ -62,14 +62,15 @@ class GEOM(SFGC):
     # -- curriculum ------------------------------------------------------
     def sorted_train(self, data: G.Dataset) -> np.ndarray:
         """Train rows sorted easiest → hardest by the entropy of their
-        neighbours' labels over the normalized adjacency's entries."""
-        host = data.adj_norm_host()
-        labels = data.labels.cpu().numpy()
+        neighbours' labels over the normalized adjacency's entries (every
+        row of the train subgraph in the inductive setting)."""
+        host = data.train_norm_host()
+        labels = self.real.labels_real.cpu().numpy()
         hist = np.zeros((host.n_rows, self.nclass))
         np.add.at(hist, (host.row, labels[host.col]), 1.0)
         hist /= np.maximum(hist.sum(1, keepdims=True), 1e-12)
         entropy = -(hist * np.log(hist + np.exp(-20.0))).sum(1)
-        tr = np.asarray(data.idx_train)
+        tr = data.pool_ids()
         return tr[np.argsort(entropy[tr], kind="stable")]
 
     def expert_schedule(self, data: G.Dataset) -> tuple:
@@ -78,7 +79,7 @@ class GEOM(SFGC):
         args = self.args
         order = torch.as_tensor(self.sorted_train(data), device=data.device)
         n_tr = order.shape[0]
-        y = data.labels[order]
+        y = self.real.labels_real[order]
         rank = torch.arange(n_tr, dtype=torch.float32, device=data.device)
 
         def loss_of(out, e):

@@ -216,17 +216,18 @@ class Mirage(Reducer):
     def _reduce(self, data: G.Dataset, verbose: bool) -> G.Reduced:
         hops, fanout, support_frac, n_vocab = HOPS, FANOUT, SUPPORT, LABELS
 
-        # --- graph view: the full graph, roots = the train nodes ---------
-        host = data.adj_host if data.adj_host is not None \
-            else G.host_of(data.adj)
+        # --- graph view: the full graph with the train nodes as roots, or
+        #     the train subgraph with every node a root -------------------
+        feat, _, labels_t = data.train_graph()
+        host = data.train_host()
         indptr, col = np.asarray(host.indptr), np.asarray(host.col)
-        labels = data.labels.cpu().numpy()
-        roots = np.asarray(data.idx_train)
-        feat_np = data.feat.cpu().numpy()
+        labels = labels_t.cpu().numpy()
+        roots = data.pool_ids()
+        feat_np = feat.cpu().numpy()
 
         # --- 1. discrete node labels by k-means over the features ------
         k = min(n_vocab, feat_np.shape[0])
-        node_label = self.node_labels(data.feat, k)
+        node_label = self.node_labels(feat, k)
         # --- 2. canonical tree ids --------------------------------------
         levels = wl_tree_hashes(indptr, col, node_label, hops - 1)
         top = levels[hops - 1]

@@ -82,17 +82,17 @@ class SFGC(CondensationBase):
                          weight_decay=a.wd_teacher)
 
     def expert_schedule(self, data: G.Dataset) -> tuple:
-        """(epochs, loss of the full-graph output at epoch e): the NLL over
-        the train rows for every one of ``teacher_epochs`` epochs."""
-        idx = torch.as_tensor(data.idx_train, device=data.device)
-        y = data.labels[idx]
+        """(epochs, loss of the real graph's output at epoch e): the NLL
+        over the train rows (every row of the train subgraph in the
+        inductive setting) for every one of ``teacher_epochs`` epochs."""
+        y = data.pool_rows(self.real.labels_real)
         return self.args.teacher_epochs, \
-            lambda out, e: utils.nll_loss(out[idx], y)
+            lambda out, e: utils.nll_loss(data.pool_rows(out), y)
 
     def trajectory(self, params0: dict, epochs: int, loss_of) -> torch.Tensor:
         """[S, P] flat parameters of one expert: at the start and after
-        every 10th of ``epochs`` full-graph epochs."""
-        model, feat, norm = self.expert_model, self.data.feat, \
+        every 10th of ``epochs`` epochs on the real graph."""
+        model, feat, norm = self.expert_model, self.real.features, \
             self.adj_norm_full
         params = utils.trainable(params0)
         leaves = utils.tree_leaves(params)

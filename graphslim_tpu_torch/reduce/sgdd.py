@@ -37,11 +37,11 @@ class SGDD(GCond):
         self.pge = IGNR(IGNRConfig(
             node_feature=self.d, nnodes=self.n_syn, nfeat=128,
             ep_ratio=args.ep_ratio, mx_size=mx_size))
-        # Lx^-1 of the raw adjacency's corner, computed once
-        host = data.adj_host if data.adj_host is not None \
-            else G.host_of(data.adj)
-        self.lx_inv = mx_inv(torch.as_tensor(adj_corner(host, mx_size),
-                                             device=data.device))
+        # Lx^-1 of the raw adjacency's corner (the train subgraph's in
+        # the inductive setting), computed once from the host mirror's
+        # entries: the JAX package densifies the whole graph first
+        self.lx_inv = mx_inv(torch.as_tensor(
+            adj_corner(data.train_host(), mx_size), device=data.device))
 
     def generator_forward(self, pge_params: dict, feat_syn: torch.Tensor):
         adj = self.pge.apply(pge_params, feat_syn)

@@ -62,8 +62,10 @@ def smoothness(fs: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
 class SimGC(CondensationBase):
     def train_teacher(self, data: G.Dataset, verbose: bool) -> tuple:
         """(teacher model, its params): an SGC of two transformations
-        trained on the real graph, of the depth the graph's size calls
-        for (a twin of at most 5000 nodes counts as cora-sized)."""
+        trained on the real graph (in the inductive setting the train
+        subgraph, validated on the val subgraph), of the depth the graph's
+        size calls for (a twin of at most 5000 nodes counts as
+        cora-sized)."""
         args = self.args
         small = data.name in ("cora", "citeseer") or (
             data.name.startswith("synth") and data.n_nodes <= 5000)
@@ -78,14 +80,9 @@ class SimGC(CondensationBase):
                                 ntrans=2, with_bn=True)
             iters = min(1000, max(args.eval_epochs * 2, 200))
         teacher = M.get_model("SGC", cfg)
-        norm = self.adj_norm_full
-        dev = data.device
-        tr = torch.as_tensor(data.idx_train, device=dev)
-        va = torch.as_tensor(data.idx_val, device=dev)
         params, best_val, _ = M.fit_with_val(
-            teacher, utils.make_generator(args.seed, dev),
-            train=(data.feat, norm, data.labels[tr], tr),
-            val=(data.feat, norm, data.labels[va], va),
+            teacher, utils.make_generator(args.seed, data.device),
+            train=data.split_batch("train"), val=data.split_batch("val"),
             cfg=M.TrainConfig(epochs=iters, lr=args.lr_teacher,
                               weight_decay=5e-4, metric=args.metric))
         log.info("SimGC teacher val acc %.4f", float(best_val))
@@ -93,16 +90,16 @@ class SimGC(CondensationBase):
 
     def concat_stats(self, data: G.Dataset) -> tuple:
         """Per-class mean and std (ddof 1) of ``[X, ÂX, Â²X, ...]`` over
-        the train rows, and the class weights ``budget / max budget``."""
+        the train rows (every row of the train subgraph in the inductive
+        setting), and the class weights ``budget / max budget``."""
         norm = self.adj_norm_full
-        feats = [data.feat]
-        tmp = data.feat
+        feats = [self.real.features]
+        tmp = self.real.features
         for _ in range(self.args.nlayers):
             tmp = norm.matmul(tmp)
             feats.append(tmp)
-        idx = torch.as_tensor(data.idx_train, device=data.device)
-        cat = torch.cat(feats, dim=1)[idx]
-        labels = data.labels[idx]
+        cat = data.pool_rows(torch.cat(feats, dim=1))
+        labels = data.pool_rows(self.real.labels_real)
         means, stds = [], []
         for c in self.classes:
             rows = cat[labels == c]

@@ -2,9 +2,11 @@
 GNNs").
 
 Counterpart of ``graphslim_tpu/reduce/vng.py``: train a GNN on the full
-graph, concatenate its per-layer embeddings of the training nodes, cluster
-them by degree-weighted k-means, and build the propagation-preserving
-virtual adjacency ``A_vr = (E A X_head) pinv(E X_head)`` through an SVD.
+graph (in the inductive setting on the train subgraph, validated on the
+val subgraph), concatenate its per-layer embeddings of the training
+nodes, cluster them by degree-weighted k-means, and build the
+propagation-preserving virtual adjacency
+``A_vr = (E A X_head) pinv(E X_head)`` through an SVD.
 
 The math is the JAX package's; the association is not.  It builds the
 training subgraph's adjacency and the membership matrix ``E`` as dense
@@ -79,23 +81,19 @@ class VNG(Reducer):
         model = M.get_model(args.condense_model, M.ModelConfig(
             nfeat=data.n_feat, nhid=args.hidden, nclass=data.nclass,
             nlayers=args.nlayers, dropout=0.0))
-        norm = data.adj_norm()
-        idx = torch.as_tensor(data.idx_train, device=dev)
-        vidx = torch.as_tensor(data.idx_val, device=dev)
-        y_train = data.labels[idx]
+        feat, _, _ = data.train_graph()
+        train = data.split_batch("train")
+        norm, y_train = train[1], train[2]
         params, _, _ = M.fit_with_val(
-            model, utils.make_generator(args.seed, dev),
-            train=(data.feat, norm, y_train, idx),
-            val=(data.feat, norm, data.labels[vidx], vidx),
+            model, utils.make_generator(args.seed, dev), train=train,
+            val=data.split_batch("val"),
             cfg=M.TrainConfig(epochs=args.eval_epochs, lr=args.lr or 0.01,
                               weight_decay=5e-4, metric=args.metric))
-        x_head = torch.cat([e[idx] for e in model.layer_features(
-            params, data.feat, norm)], dim=1)
+        x_head = torch.cat([data.pool_rows(e) for e in model.layer_features(
+            params, feat, norm)], dim=1)
 
         # degree-weighted k-means over the concatenated embeddings
-        host = data.adj_host if data.adj_host is not None \
-            else G.host_of(data.adj)
-        adj_tr = G.submatrix(host, data.idx_train, device=dev)
+        adj_tr = data.pool_subgraph()
         n_tr = x_head.shape[0]
         col_sum = adj_tr.rmatmul(x_head.new_ones((n_tr, 1)), n_tr)[:, 0]
         col_sum = torch.where(col_sum == 0, torch.ones_like(col_sum),
@@ -105,6 +103,6 @@ class VNG(Reducer):
         init = x_head[self.init_rows(n_tr, n_syn, gen)]
         _, assign = kmeans(x_head, n_syn, weights=col_sum, init=init)
         x_vr, a_vr, labels_syn = virtual_graph(
-            x_head, assign, col_sum, data.feat[idx], adj_tr, y_train,
+            x_head, assign, col_sum, data.pool_rows(feat), adj_tr, y_train,
             n_syn, data.nclass)
         return G.Reduced(feat=x_vr, adj=a_vr, labels=labels_syn)

@@ -75,11 +75,46 @@ def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (pred == labels).to(torch.float32).mean(dim=-1)
 
 
+def f1_macro(logits: torch.Tensor, labels: torch.Tensor,
+             nclass: int) -> torch.Tensor:
+    """Macro-averaged F1 over ``nclass`` classes; a class with no true and
+    no predicted row counts 0, as in the JAX package."""
+    pred = torch.argmax(logits, dim=-1)
+    classes = torch.arange(nclass, device=logits.device)
+    pred_oh = pred.unsqueeze(-2) == classes[:, None]          # [..., C, N]
+    true_oh = labels.unsqueeze(-2) == classes[:, None]
+    tp = (pred_oh & true_oh).sum(-1).to(torch.float32)
+    fp = (pred_oh & ~true_oh).sum(-1).to(torch.float32)
+    fn = (~pred_oh & true_oh).sum(-1).to(torch.float32)
+    precision = tp / torch.clamp(tp + fp, min=1.0)
+    recall = tp / torch.clamp(tp + fn, min=1.0)
+    f1 = 2 * precision * recall / torch.clamp(precision + recall,
+                                              min=1e-12)
+    return f1.mean(-1)
+
+
+def roc_auc(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Binary ROC-AUC by the rank statistic of the positive-class
+    ``scores`` (ranks in sort order, as the JAX package assigns them)."""
+    order = torch.argsort(scores, stable=True)
+    ranks = torch.empty_like(scores)
+    ranks[order] = torch.arange(1, scores.shape[0] + 1,
+                                dtype=scores.dtype, device=scores.device)
+    pos = labels == 1
+    n_pos = pos.sum().to(scores.dtype)
+    n_neg = scores.shape[0] - n_pos
+    rank_sum = torch.where(pos, ranks, torch.zeros_like(ranks)).sum()
+    return (rank_sum - n_pos * (n_pos + 1) / 2) / torch.clamp(
+        n_pos * n_neg, min=1.0)
+
+
 def metric_fn(name: str, nclass: int):
-    if name != "accuracy":
-        raise NotImplementedError(
-            f"metric {name!r} is not ported yet (ROADMAP.md, queue 1, "
-            "item 13)")
+    """Metric by name: ``f1_macro`` (yelp, amazon), ``roc_auc`` on the
+    class-1 score, accuracy otherwise."""
+    if name == "f1_macro":
+        return lambda logits, labels: f1_macro(logits, labels, nclass)
+    if name == "roc_auc":
+        return lambda logits, labels: roc_auc(logits[:, 1], labels)
     return accuracy
 
 

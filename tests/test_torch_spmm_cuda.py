@@ -119,7 +119,7 @@ def test_gather_dispatch_counts_launches(card):
         SG.gather_rows_cuda(x.double(), idx)
 
 
-@pytest.mark.parametrize("d", [1, 16, 40, 128, 129, 200, 256])
+@pytest.mark.parametrize("d", [1, 2, 7, 16, 40, 41, 128, 129, 200, 256])
 @pytest.mark.parametrize("sizes", [
     dict(td=128, ts=128, chunk=256, stage_min=128),       # staged blocks
     dict(td=128, ts=128, chunk=256, stage_min=10 ** 9),   # direct only
