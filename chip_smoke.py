@@ -85,7 +85,7 @@ line of output each, any failed check raises (non-zero exit):
    score above the test split's largest-class share;
 11. the blocked SpMM on the twin's Â at d = 1100 (GDEM's eigensolve block)
    against its plain version and a float64 product, timed beside its
-   plain version, ``torch.sparse.mm`` and its byte bound; then GCSNTK,
+   plain version, ``torch.sparse.mm`` and its bound; then GCSNTK,
    SimGC, SFGC, GEOM and GDEM at full width on the twin at r = 0.01
    (n_syn 1354, GCSNTK 1355; hidden 256, PGE nhid 256), each from a fresh
    ``save_path`` through ``create_reducer(...).reduce()`` and the default
@@ -118,14 +118,37 @@ line of output each, any failed check raises (non-zero exit):
    SpMM width, peak memory and the idle share of a profiled epoch, step
    or (device-traced) reduce; GCond must keep the PGE launch rule.  Each
    run's launches are counted from 0 (the counters are reset just before
-   it and read just after).
+   it and read just after);
+13. edge sparsification and structural coarsening through
+   ``train_all.run`` (each twin loaded once and handed to it) and the
+   default evaluator (GCN, 300 epochs), at each twin's representative
+   rate (``COARSEN_RUNS``): (a) the cora twin, all 14 methods with 3
+   seeds, and heavy_edge and variation_edges with ``--coarsen_strategy
+   optimal`` (the blossom); (b) the arxiv twin, random_edge, g_spar,
+   scan, local_degree, spanning_forest and rank_degree, then heavy_edge
+   (reported, not gated); (c) the pubmed twin, t_spanner, the variation
+   family, algebraic_jc and affinity_gs; (d) the flickr twin
+   (inductive), random_edge, g_spar and heavy_edge.  Each run prints
+   n_syn, the entries kept, reduce seconds with the share of the dense
+   ``eigh`` on the card, evaluate seconds, the accuracy, the SpMM's
+   launches by width (counted from 0) and peak memory; every result must
+   be finite and read back equal from its artifact, and in (a), (c) and
+   (d) every method but spanning_forest and t_spanner must score above
+   the test split's largest-class share.  Then the blocked SpMM on the
+   normalized Â of the graphs ``HELD`` names (the arxiv twin after
+   random_edge; the cora twin after kron, with nearly full tiles, and
+   after random_edge) and of the pubmed coarse graph with the most
+   entries, at the widths their evaluations launched (cora 7 and 1434,
+   the references on slabs of 256 columns), against its plain version
+   and float64, bit for bit on a repeat.
 
 Phases 6 and 7 run before phase 4.  The line before the last is the
-``kernels`` JSON (launches: phases 4, 8, 9, 10, 11 and 12); the last line
-is ``{"ok": true, "device": {...}}``.  ``--only kernels`` stops after the
-kernel comparisons (phases 2, 3, 6, 7); ``--only condense`` runs phase 9
-alone (after the build), ``--only cluster`` phase 10, ``--only distill``
-phase 11 and ``--only ind`` phase 12, and none of them prints a result.
+``kernels`` JSON (launches: phases 4, 8, 9, 10, 11, 12 and 13); the last
+line is ``{"ok": true, "device": {...}}``.  ``--only kernels`` stops after
+the kernel comparisons (phases 2, 3, 6, 7); ``--only condense`` runs phase
+9 alone (after the build), ``--only cluster`` phase 10, ``--only distill``
+phase 11, ``--only ind`` phase 12 and ``--only coarsen`` phase 13, and none
+of them prints a result.
 Without a CUDA card, or outside a checkout, it exits non-zero and prints
 no result.
 """
@@ -789,29 +812,46 @@ def probe_gather(SG, stats: dict, ds) -> None:
 # Phase 7: the blocked SpMM
 # ---------------------------------------------------------------------------
 
-def spmm_bound_ms(nnz: int, n_rows: int, n_cols: int, d: int) -> float:
-    """Bytes over HBM bandwidth: stored entries × (index + value), one
-    read of x, one write of out."""
-    return 1e3 * (nnz * 8 + (n_rows + n_cols) * d * 4) / PEAK_BYTES
+def spmm_bound(nnz: int, n_rows: int, n_cols: int, d: int) -> tuple:
+    """(ms, "bytes" or "operations"), the larger of two times: the bytes
+    over HBM bandwidth (stored entries × (index + value), one read of x,
+    one write of out) and the 2·nnz·d float32 operations over the fp32
+    peak, which is the larger where rows hold about 80 entries or more."""
+    by_bytes = 1e3 * (nnz * 8 + (n_rows + n_cols) * d * 4) / PEAK_BYTES
+    by_ops = 1e3 * 2 * nnz * d / PEAK_FP32
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
 
 
-def check_spmm(SB, tag: str, adj, layout, x, bad: list, f64=None) -> float:
+def check_spmm(SB, tag: str, adj, layout, x, bad: list,
+               slab: int = 0) -> float:
     """Kernel against the plain version over the same layout and against
-    a float64 product, and twice for bit-equality → max|kernel - plain|."""
+    a float64 product, and twice for bit-equality → max|kernel - plain|.
+    With ``slab`` the references are computed on column slabs of that
+    width (the float64 product gathers one row of x per stored entry)."""
     import torch
 
     from graphslim_tpu_torch.kernels.spmm import spmm_plain
 
     out = SB.spmm_blocked(layout, x)
     torch.cuda.synchronize()
-    ref = SB.spmm_blocked_plain(layout, x)
-    if f64 is None:
-        f64 = spmm_plain(adj.row, adj.col, adj.values_or_ones().double(),
-                         x.double(), adj.n_rows)
-    err = check_close(f"spmm {tag} vs plain", out, ref, TOL_SPMM, bad, f64)
-    check_close(f"spmm {tag} vs float64", out.double(), f64, TOL_SPMM, bad)
-    check_close(f"spmm plain {tag} vs float64", ref.double(), f64, TOL_SPMM,
-                bad)
+    d = x.shape[1]
+    slab = slab or d
+    vals = adj.values_or_ones().double()
+    err = 0.0
+    for a in range(0, d, slab):
+        xs = x[:, a:a + slab].contiguous()
+        ref = SB.spmm_blocked_plain(layout, xs)
+        f64 = spmm_plain(adj.row, adj.col, vals, xs.double(), adj.n_rows)
+        part = f" cols {a}:{a + xs.shape[1]}" if slab < d else ""
+        got = out[:, a:a + slab]
+        err = max(err, check_close(f"spmm {tag}{part} vs plain", got, ref,
+                                   TOL_SPMM, bad, f64))
+        check_close(f"spmm {tag}{part} vs float64", got.double(), f64,
+                    TOL_SPMM, bad)
+        check_close(f"spmm plain {tag}{part} vs float64", ref.double(), f64,
+                    TOL_SPMM, bad)
+        del xs, ref, f64
     if not torch.equal(out, SB.spmm_blocked(layout, x)):
         bad.append(f"spmm {tag}: two runs differ")
     return err
@@ -904,7 +944,7 @@ def compare_spmm_arxiv(SB, ds, stats: dict) -> None:
         ms_b = median_ms(lambda: SB.spmm_blocked(layout_t, g))
         plain = median_ms(lambda: SB.spmm_blocked_plain(layout, x), 5, 1)
         lib = median_ms(lambda: torch.sparse.mm(csr, x))
-        bound = spmm_bound_ms(nnz, n, n, d)
+        bound, by = spmm_bound(nnz, n, n, d)
         moved = (nnz * (8 + d * 4) + layout.bounds.numel() * 4
                  + n * d * 4) / 1e9
         plan = SB.launch_plan(d, d % 4 == 0)
@@ -914,12 +954,12 @@ def compare_spmm_arxiv(SB, ds, stats: dict) -> None:
             f"{err:.2e}, bwd max|Δ| "
             f"{err_b:.2e}; kernel {ms:.4f} ms (transposed layout "
             f"{ms_b:.4f} ms; plain {plain:.3f} ms; torch.sparse.mm "
-            f"{lib:.4f} ms; bound {bound:.4f} ms by bytes); the kernel "
+            f"{lib:.4f} ms; bound {bound:.4f} ms by {by}); the kernel "
             f"requests {moved:.3f} GB (every entry's row of x, through "
             f"L2), {moved / ms * 1e3:.0f} GB/s")
         stats[f"spmm_blocked_d{d}"] = dict(
             max_abs_err=max(err, err_b), ms=ms, plain_ms=plain,
-            bound_ms=bound, bound_by="bytes", library_ms=lib)
+            bound_ms=bound, bound_by=by, library_ms=lib)
         del x, g, leaf, gx, g64, ref_t
         torch.cuda.empty_cache()
     if bad:
@@ -954,11 +994,11 @@ def compare_spmm_subgraphs(SB, G, subgraphs: dict) -> None:
             ms64 = queued_ms(lambda: SB.spmm_blocked(wide, x))
             plain = queued_ms(lambda: SB.spmm_blocked_plain(layout, x))
             lib = queued_ms(lambda: torch.sparse.mm(csr, x))
+            bound, by = spmm_bound(nnz, n, n, d)
             parts.append(
                 f"d={d}: max|Δ| {err:.2e}, kernel {ms:.4f} ms (td=64 "
                 f"{ms64:.4f} ms; plain {plain:.4f} ms; torch.sparse.mm "
-                f"{lib:.4f} ms; bound {spmm_bound_ms(nnz, n, n, d):.5f} ms "
-                f"by bytes)")
+                f"{lib:.4f} ms; bound {bound:.5f} ms by {by})")
         log(f"spmm on the {method} subgraph: {n} rows, {nnz} stored "
             f"entries, heaviest row {heaviest}; layout {layout.describe()} "
             f"({-(-n // layout.td)} destination tiles); device time of "
@@ -1588,50 +1628,32 @@ def compare_spmm_wide(SB, ds, stats: dict) -> None:
     """The blocked SpMM on the twin's Â at d = 1100 (GDEM's eigensolve),
     forward: against its plain version and a float64 product on column
     slabs of 275 (a whole-width float64 gather would take 40 GB), timed
-    beside its plain version, torch.sparse.mm and its byte bound."""
+    beside its plain version, torch.sparse.mm and its bound."""
     import torch
-
-    from graphslim_tpu_torch.kernels.spmm import spmm_plain
 
     adj = ds.adj_norm()
     layout = adj.blocked()
     n, nnz = adj.n_rows, adj.nnz
     x = torch.randn(n, WIDE, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(5))
-    out = SB.spmm_blocked(layout, x)
-    torch.cuda.synchronize()
     bad: list = []
-    err = 0.0
-    for a in range(0, WIDE, 275):
-        xs = x[:, a:a + 275].contiguous()
-        ref = SB.spmm_blocked_plain(layout, xs)
-        f64 = spmm_plain(adj.row, adj.col, adj.values_or_ones().double(),
-                         xs.double(), n)
-        err = max(err, check_close(f"spmm d={WIDE} cols {a}: vs plain",
-                                   out[:, a:a + 275], ref, TOL_SPMM, bad,
-                                   f64))
-        check_close(f"spmm d={WIDE} cols {a}: vs float64",
-                    out[:, a:a + 275].double(), f64, TOL_SPMM, bad)
-        del ref, f64
-    if not torch.equal(out, SB.spmm_blocked(layout, x)):
-        bad.append(f"spmm d={WIDE}: two runs differ")
-    del out
+    err = check_spmm(SB, f"d={WIDE}", adj, layout, x, bad, slab=275)
     torch.cuda.empty_cache()
     ms = median_ms(lambda: SB.spmm_blocked(layout, x))
     plain = median_ms(lambda: SB.spmm_blocked_plain(layout, x), 3, 1)
     torch.cuda.empty_cache()
     lib = median_ms(lambda: torch.sparse.mm(adj.to_csr(), x))
-    bound = spmm_bound_ms(nnz, n, n, WIDE)
+    bound, by = spmm_bound(nnz, n, n, WIDE)
     plan = SB.launch_plan(WIDE, True)
     log(f"spmm arxiv twin d={WIDE} ({plan['n_slabs']} walks of the entries "
         f"of {plan['slab']} columns): max|Δ| {err:.2e} against the plain "
         f"version; kernel {ms:.4f} ms (plain {plain:.3f} ms; "
-        f"torch.sparse.mm {lib:.4f} ms; bound {bound:.4f} ms by bytes)")
+        f"torch.sparse.mm {lib:.4f} ms; bound {bound:.4f} ms by {by})")
     if bad:
         fail("blocked SpMM disagrees at d = 1100:\n  " + "\n  ".join(bad))
     stats[f"spmm_blocked_d{WIDE}"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-        bound_by="bytes", library_ms=lib)
+        bound_by=by, library_ms=lib)
     del x
     torch.cuda.empty_cache()
 
@@ -1971,11 +1993,9 @@ def compare_spmm_ind(SB, ds, stats: dict) -> None:
     ``IND_SPMM_WIDTHS``, against its plain version and a float64 product
     on column slabs of 64 (whole-width gathers of the reddit twin's
     entries would take 67 GB), timed beside the plain version (summed
-    over the slabs), ``torch.sparse.mm`` and its byte bound; at d = 256
+    over the slabs), ``torch.sparse.mm`` and its bound; at d = 256
     the backward too."""
     import torch
-
-    from graphslim_tpu_torch.kernels.spmm import spmm_plain
 
     name = ds.name
     adj = ds.view_norm("train")
@@ -1986,26 +2006,12 @@ def compare_spmm_ind(SB, ds, stats: dict) -> None:
     bad: list = []
     for d in IND_SPMM_WIDTHS[name]:
         x = torch.randn(n, d, generator=gen, device="cuda")
-        out = SB.spmm_blocked(layout, x)
-        torch.cuda.synchronize()
-        err, plain = 0.0, 0.0
-        for a in range(0, d, SLAB):
-            xs = x[:, a:a + SLAB].contiguous()
-            ref = SB.spmm_blocked_plain(layout, xs)
-            f64 = spmm_plain(adj.row, adj.col, adj.values_or_ones().double(),
-                             xs.double(), n)
-            tag = f"spmm {name} train d={d} cols {a}"
-            err = max(err, check_close(f"{tag}: vs plain", out[:, a:a + SLAB],
-                                       ref, TOL_SPMM, bad, f64))
-            check_close(f"{tag}: vs float64", out[:, a:a + SLAB].double(),
-                        f64, TOL_SPMM, bad)
-            del ref, f64
-            plain += median_ms(lambda: SB.spmm_blocked_plain(layout, xs),
-                               3, 1)
-        if not torch.equal(out, SB.spmm_blocked(layout, x)):
-            bad.append(f"spmm {name} train d={d}: two runs differ")
-        del out
+        err = check_spmm(SB, f"{name} train d={d}", adj, layout, x, bad,
+                         slab=SLAB)
         torch.cuda.empty_cache()
+        plain = sum(median_ms(lambda xs=x[:, a:a + SLAB].contiguous():
+                              SB.spmm_blocked_plain(layout, xs), 3, 1)
+                    for a in range(0, d, SLAB))
         extra = ""
         if d == 256:
             g = torch.randn(n, d, generator=gen, device="cuda")
@@ -2025,16 +2031,16 @@ def compare_spmm_ind(SB, ds, stats: dict) -> None:
             del g, leaf, gx
         ms = median_ms(lambda: SB.spmm_blocked(layout, x))
         lib = median_ms(lambda: torch.sparse.mm(csr, x))
-        bound = spmm_bound_ms(nnz, n, n, d)
+        bound, by = spmm_bound(nnz, n, n, d)
         plan = SB.launch_plan(d, d % 4 == 0)
         log(f"spmm {name} twin train subgraph d={d} ({n} rows, {nnz} "
             f"entries, layout {layout.describe()}; {plan['n_slabs']} "
             f"walk(s) of the entries): max|Δ| {err:.2e}{extra}; kernel "
             f"{ms:.4f} ms (plain {plain:.3f} ms over {-(-d // SLAB)} slabs; "
-            f"torch.sparse.mm {lib:.4f} ms; bound {bound:.4f} ms by bytes)")
+            f"torch.sparse.mm {lib:.4f} ms; bound {bound:.4f} ms by {by})")
         stats[f"spmm_blocked_{name}_d{d}"] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-            bound_by="bytes", library_ms=lib)
+            bound_by=by, library_ms=lib)
         del x
         torch.cuda.empty_cache()
     del csr
@@ -2398,10 +2404,272 @@ def run_ind(K, SB, SG, tmp: str, stats: dict) -> dict:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: edge sparsification and structural coarsening
+# ---------------------------------------------------------------------------
+
+EDGE_SPARSIFIERS = ("random_edge", "g_spar", "scan", "local_degree",
+                    "spanning_forest", "rank_degree", "t_spanner")
+COARSENERS = ("variation_neighborhoods", "variation_edges",
+              "variation_cliques", "heavy_edge", "algebraic_jc",
+              "affinity_gs", "kron")
+# reported without a gate, as the JAX package reports them
+# (EFFICIENCY.md:89)
+UNGATED = {"spanning_forest", "t_spanner"}
+# (twin, method, flags, evaluation seeds, gate), each at the twin's
+# representative rate: (a) cora, every method (the blossom strategy for
+# two); (b) the arxiv twin, six sparsifiers (reported, not gated) and
+# heavy_edge (n_syn and entries only); (c) pubmed; (d) flickr, inductive
+COARSEN_RUNS = (
+    [("cora", m, {}, 3, m not in UNGATED)
+     for m in EDGE_SPARSIFIERS + COARSENERS]
+    + [("cora", m, {"coarsen_strategy": "optimal"}, 3, True)
+       for m in ("heavy_edge", "variation_edges")]
+    + [("ogbn-arxiv", m, {}, 1, False) for m in EDGE_SPARSIFIERS[:6]]
+    + [("ogbn-arxiv", "heavy_edge", {}, 1, False)]
+    + [("pubmed", m, {}, 1, m not in UNGATED)
+       for m in ("t_spanner",) + COARSENERS[:3]
+       + ("algebraic_jc", "affinity_gs")]
+    + [("flickr", m, {}, 1, True)
+       for m in ("random_edge", "g_spar", "heavy_edge")])
+
+
+# the reduced graphs the blocked SpMM is held on after the runs, at the
+# widths their evaluation launched, beside the pubmed coarse graph with
+# the most entries: the arxiv Â after keeping 1% of the edges (nearly
+# every row only its self loop); Kron's cora graph (979 rows, nearly full
+# tiles) and a cora sparsifier's, both at d = 7 and 1434
+HELD = (("ogbn-arxiv", "random_edge", {}), ("cora", "kron", {}),
+        ("cora", "random_edge", {}))
+
+
+def same_triple(a, b) -> bool:
+    import torch
+
+    return (torch.equal(a.feat, b.feat) and torch.equal(a.labels, b.labels)
+            and a.adj.n_rows == b.adj.n_rows
+            and torch.equal(a.adj.row, b.adj.row)
+            and torch.equal(a.adj.col, b.adj.col)
+            and torch.equal(a.adj.values_or_ones(), b.adj.values_or_ones()))
+
+
+def compare_spmm_reduced(SB, G, tag: str, raw, widths, stats: dict) -> None:
+    """The blocked SpMM on a reduced graph's normalized Â (what the
+    evaluator trains on) at the widths its evaluation launched, against
+    the plain version and float64, bit for bit on a repeat; timed beside
+    the plain version, ``torch.sparse.mm`` and its bound."""
+    import torch
+
+    adj = G.gcn_norm(raw)
+    layout = adj.blocked()
+    csr = adj.to_csr()
+    n, nnz = adj.n_rows, adj.nnz
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    bad: list = []
+    parts = []
+    for d in widths:
+        x = torch.randn(n, d, generator=gen, device="cuda")
+        # above 256 columns the references are made on slabs of 256
+        err = check_spmm(SB, f"{tag} d={d}", adj, layout, x, bad,
+                         slab=256 if d > 256 else 0)
+        ms = queued_ms(lambda: SB.spmm_blocked(layout, x))
+        plain = queued_ms(lambda: SB.spmm_blocked_plain(layout, x), 5)
+        lib = queued_ms(lambda: torch.sparse.mm(csr, x))
+        bound, by = spmm_bound(nnz, n, n, d)
+        parts.append(f"d={d}: max|Δ| {err:.2e}, kernel {ms:.4f} ms (plain "
+                     f"{plain:.4f} ms; torch.sparse.mm {lib:.4f} ms; bound "
+                     f"{bound:.5f} ms by {by})")
+        stats[f"spmm_blocked_{tag}_d{d}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+            bound_by=by, library_ms=lib)
+        del x
+    log(f"spmm on the {tag} Â: {n} rows, {nnz} stored entries "
+        f"({nnz - n} off the diagonal, {nnz / max(n, 1):.1f} a row), layout "
+        f"{layout.describe()}; device "
+        f"time of launches queued back to back; " + "; ".join(parts))
+    if bad:
+        fail(f"blocked SpMM disagrees on the {tag} Â:\n  "
+             + "\n  ".join(bad))
+
+
+def run_coarsen(SB, G, arxiv, tmp: str, stats: dict) -> dict:
+    """Phase 13: the seven edge sparsifiers and the seven structural
+    coarseners through ``train_all.run`` (the twin loaded once, handed to
+    it) and the default evaluator (GCN, 300 epochs), ``COARSEN_RUNS``.
+    Each run's SpMM launches are counted from 0; returns the phase's."""
+    import numpy as np
+    import torch
+
+    from graphslim_tpu_torch import train_all as TA
+    from graphslim_tpu_torch.config import Args, finalize
+    from graphslim_tpu_torch.data import load_reduced
+
+    t_phase = time.perf_counter()
+    # each twin is loaded once, with the options train_all.run asks for
+    # (the arxiv twin of the earlier phases was loaded with the same)
+    twins = {"ogbn-arxiv": arxiv}
+    options = {"ogbn-arxiv": dict(setting="trans", split="fixed", seed=0,
+                                  data_dir=None, pre_norm=True,
+                                  device="cuda")}
+    majority = {}
+    real_load = TA.load
+
+    def load_twin(name, **kw):
+        if name not in twins:
+            t0 = time.perf_counter()
+            twins[name], options[name] = real_load(name, **kw), kw
+            torch.cuda.synchronize()
+            log(f"phase 13: load the {name} twin "
+                f"{time.perf_counter() - t0:.2f} s")
+        if kw != options[name]:
+            fail(f"phase 13: load({name!r}) with options {kw}, the twin was "
+                 f"loaded with {options[name]}")
+        ds = twins[name]
+        if name not in majority:
+            # the evaluator's graphs: normalization and layout built once
+            t0 = time.perf_counter()
+            if ds.setting == "ind":
+                ds.view_norm("val").blocked()
+                ds.view_norm("test").blocked()
+                labels = ds.labels_test.cpu().numpy()
+            else:
+                ds.adj_norm().blocked()
+                labels = ds.labels.cpu().numpy()[ds.idx_test]
+            torch.cuda.synchronize()
+            majority[name] = float(np.bincount(labels).max()
+                                   / labels.shape[0])
+            log(f"phase 13: {name} twin ({ds.setting}): {ds.n_nodes} nodes, "
+                f"{ds.adj.nnz} entries, {ds.nclass} classes; the evaluator's "
+                f"normalization and layouts {time.perf_counter() - t0:.2f} "
+                f"s; the test split's largest class holds "
+                f"{majority[name]:.4f}")
+        return ds
+
+    seen: dict = {}
+    create, evaluator = TA.create_reducer, TA.Evaluator
+
+    def create_timed(method, data, args, **kw):
+        agent = create(method, data, args, **kw)
+        reduce = agent.reduce
+        if hasattr(agent, "basis"):
+            basis = agent.basis
+
+            def timed_basis(W):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = basis(W)
+                torch.cuda.synchronize()
+                seen.setdefault("basis", []).append(
+                    (W.shape[0], time.perf_counter() - t0))
+                return out
+            agent.basis = timed_basis
+
+        def timed_reduce(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = reduce(*a, **k)
+            torch.cuda.synchronize()
+            seen["reduce"] = (time.perf_counter() - t0, out)
+            seen["widths_reduce"] = dict(SB.LAUNCHES_BY_WIDTH)
+            return out
+        agent.reduce = timed_reduce
+        return agent
+
+    class TimedEvaluator(evaluator):
+        def evaluate(self, reduced, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super().evaluate(reduced, *a, **kw)
+            torch.cuda.synchronize()
+            seen["evaluate"] = time.perf_counter() - t0
+            return out
+
+    TA.create_reducer, TA.Evaluator, TA.load = \
+        create_timed, TimedEvaluator, load_twin
+    SB.reset_launches()
+    total = 0
+    coarse_c = None
+    held = [None] * len(HELD)
+    for name, method, flags, seeds, gate in COARSEN_RUNS:
+        args = finalize(Args(dataset=name, method=method, seed=0,
+                             run_eval=seeds, eval_epochs=300,
+                             save_path=os.path.join(tmp, name),
+                             device="cuda", **flags),
+                        explicit={"seed", "run_eval", "eval_epochs",
+                                  *flags})
+        seen.clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        SB.reset_launches()
+        t0 = time.perf_counter()
+        acc, std = TA.run(args)
+        t_run = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        t_red, red = seen["reduce"]
+        w_red = seen["widths_reduce"]
+        w_all = dict(SB.LAUNCHES_BY_WIDTH)
+        w_eval = {d: c - w_red.get(d, 0) for d, c in sorted(w_all.items())
+                  if c > w_red.get(d, 0)}
+        total += SB.LAUNCHES["spmm_blocked"]
+        tag = method + "".join(f" --{k} {v}" for k, v in flags.items())
+        if not torch.isfinite(red.feat).all() or \
+                not torch.isfinite(red.adj.values_or_ones()).all():
+            fail(f"{tag} {name}: non-finite reduced graph")
+        back = load_reduced(args.save_path, method, twins[name].name,
+                            args.reduction_rate, args.seed, device="cuda")
+        if not same_triple(back, red):
+            fail(f"{tag} {name}: the artifact reads back another triple")
+        bases = seen.get("basis", [])
+        dense = [s for n, s in bases if n <= 3000]
+        arpack = [s for n, s in bases if n > 3000]
+        if not (math.isfinite(acc) and math.isfinite(std)):
+            fail(f"{tag} {name}: accuracy {acc} ± {std}")
+        if gate and not acc > majority[name]:
+            fail(f"{tag} {name}: accuracy {acc:.4f} is not above the "
+                 f"largest class share {majority[name]:.4f}")
+        ds = twins[name]
+        log(f"{tag} {name} ({ds.setting}, r={args.reduction_rate}): n_syn "
+            f"{red.n_syn} of {ds.train_graph()[0].shape[0]}, entries "
+            f"{red.adj.nnz} of {ds.train_graph()[1].nnz}; reduce "
+            f"{t_red:.2f} s (dense eigh on the card: {len(dense)} call(s), "
+            f"{sum(dense):.3f} s = {sum(dense) / t_red:.3f} of it; ARPACK "
+            f"{len(arpack)} call(s), {sum(arpack):.2f} s); evaluate GCN "
+            f"{seeds} seed(s) x 300 epochs {seen['evaluate']:.2f} s, "
+            f"accuracy {acc:.4f} ± {std:.4f} "
+            f"({'gated' if gate else 'not gated'}); SpMM "
+            f"launches by width: evaluation {w_eval}, reduce "
+            f"{ {d: c for d, c in w_red.items() if c} }; peak "
+            f"{peak:.2f} GiB; run {t_run:.2f} s")
+        if (name, method, flags) in HELD:
+            held[HELD.index((name, method, flags))] = (red.adj,
+                                                       sorted(w_eval))
+        if name == "pubmed" and method in COARSENERS and (
+                coarse_c is None or red.adj.nnz > coarse_c[1].nnz):
+            coarse_c = (method, red.adj, sorted(w_eval))
+        del red, back
+        seen.clear()
+    TA.create_reducer, TA.Evaluator, TA.load = create, evaluator, real_load
+
+    # the blocked SpMM on the phase's new shapes
+    if None in held or coarse_c is None:
+        fail(f"phase 13: no graph of {HELD} or no pubmed coarse graph to "
+             f"hold the blocked SpMM on")
+    for (name, method, _), graph in zip(HELD, held):
+        compare_spmm_reduced(SB, G, f"{name} {method}", *graph, stats)
+    compare_spmm_reduced(SB, G, f"pubmed {coarse_c[0]}", *coarse_c[1:],
+                         stats)
+    del twins, held, coarse_c
+    torch.cuda.empty_cache()
+    log(f"phase 13: {total} blocked-SpMM launches, "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"spmm_blocked": total}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=["kernels", "condense", "cluster",
-                                       "distill", "ind"],
+                                       "distill", "ind", "coarsen"],
                     default=None)
     opts = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "graphslim_tpu_torch")):
@@ -2451,9 +2719,11 @@ def main() -> None:
     ds = load("ogbn-arxiv", seed=0, device="cuda")
     log(f"load ogbn-arxiv twin: {ds.n_nodes} nodes, {ds.adj.nnz} edges, "
         f"{time.perf_counter() - t0:.1f} s")
-    if opts.only in ("condense", "cluster", "distill"):
+    if opts.only in ("condense", "cluster", "distill", "coarsen"):
         with tempfile.TemporaryDirectory() as tmp:
-            if opts.only == "condense":
+            if opts.only == "coarsen":
+                run_coarsen(SB, G, ds, tmp, {})
+            elif opts.only == "condense":
                 run_condensers(K, SB, ds, tmp)
             elif opts.only == "cluster":
                 run_clusterers(SB, ds, tmp)
@@ -2532,6 +2802,11 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         ind = run_ind(K, SB, SG, tmp, stats)
 
+    # --- phase 13 --------------------------------------------------------
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        coarse = run_coarsen(SB, G, ds, tmp, stats)
+
     src = "graphslim_tpu_torch/csrc/"
     kernels = [
         # ms: the launch kind that keeps the workspace (syn_adj_norm);
@@ -2552,7 +2827,7 @@ def main() -> None:
              replaces="graphslim_tpu/kernels/pallas_spmm_blocked.py:198",
              launches=core["spmm_blocked"] + cond["spmm_blocked"]
              + clus["spmm_blocked"] + dist["spmm_blocked"]
-             + ind["spmm_blocked"],
+             + ind["spmm_blocked"] + coarse["spmm_blocked"],
              **stats["spmm_blocked_d256"]),
         dict(name="smem_gather", route="cuda",
              source=src + "smem_gather.cu",

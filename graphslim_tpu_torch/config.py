@@ -114,6 +114,15 @@ class Args:
     e1: int = 10
     e2: int = 15
     eigen_backend: str = "auto"
+    # Edge sparsification and structural coarsening: the t-spanner's
+    # stretch; the matching coarseners' strategy (greedy | optimal, the
+    # exact blossom) and proximity measure (empty: each method's own;
+    # heavy_edge, heavy_edge_degree, algebraic_JC, algebraic_GS,
+    # affinity_GS, min_expected_loss, min_expected_gradient_loss, rss,
+    # rss_lanczos, rss_cheby)
+    ts: int = 4
+    coarsen_strategy: str = "greedy"
+    coarsen_measure: str = ""
     # --- evaluation -----------------------------------------------------
     run_eval: int = 10
     run_inter_eval: int = 3

@@ -65,6 +65,9 @@ class Evaluator:
         a = self.args
         runs = runs if runs is not None else a.run_eval
         seed = seed if seed is not None else a.seed
+        if reduced.n_syn == 0:
+            raise ValueError(f"the reduced graph of {a.method} has no rows: "
+                             "there is nothing to train on")
         model = self._eval_model(model_type, reduced.feat.shape[-1])
         tx, tadj, ty = self._train_tuple(reduced, model_type)
         val = self.data.split_batch("val")

@@ -1,8 +1,7 @@
 """Reduction-method registry: name → lazily imported class.
 
-Counterpart of ``graphslim_tpu/reduce/registry.py``.  Every method the
-JAX package registers is known here; the ones this port does not have yet
-raise ``NotImplementedError`` naming their ROADMAP item.
+Counterpart of ``graphslim_tpu/reduce/registry.py``: every method the
+JAX package registers, and its aliases.
 """
 
 from __future__ import annotations
@@ -37,15 +36,21 @@ _PORTED = {
     "sfgc": ("sfgc", "SFGC", None),
     "geom": ("geom", "GEOM", None),
     "gdem": ("gdem", "GDEM", None),
-}
-
-# name → ROADMAP.md queue-1 item that ports it
-_QUEUED = {
-    **{m: 11 for m in ("random_edge", "g_spar", "local_degree", "scan",
-                       "spanning_forest", "rank_degree", "t_spanner",
-                       "variation_neighborhoods", "variation_edges",
-                       "variation_cliques", "heavy_edge", "algebraic_jc",
-                       "affinity_gs", "kron")},
+    "random_edge": ("edge_sparsify", "RandomEdge", None),
+    "g_spar": ("edge_sparsify", "GSpar", None),
+    "local_degree": ("edge_sparsify", "LocalDegree", None),
+    "scan": ("edge_sparsify", "Scan", None),
+    "spanning_forest": ("edge_sparsify", "SpanningForest", None),
+    "rank_degree": ("edge_sparsify", "RankDegree", None),
+    "t_spanner": ("edge_sparsify", "TSpanner", None),
+    "variation_neighborhoods": ("coarsening", "VariationNeighborhoods",
+                                None),
+    "variation_edges": ("coarsening", "VariationEdges", None),
+    "variation_cliques": ("coarsening", "VariationCliques", None),
+    "heavy_edge": ("coarsening", "HeavyEdge", None),
+    "algebraic_jc": ("coarsening", "AlgebraicJC", None),
+    "affinity_gs": ("coarsening", "AffinityGS", None),
+    "kron": ("coarsening", "Kron", None),
 }
 
 _ALIASES = {"algebraic_JC": "algebraic_jc", "affinity_GS": "affinity_gs",
@@ -53,21 +58,24 @@ _ALIASES = {"algebraic_JC": "algebraic_jc", "affinity_GS": "affinity_gs",
             "average": "averaging"}
 
 
+def reducer_class(method: str, agg: bool = False) -> type:
+    """The class that ``method`` (or its alias) names; ``agg`` selects
+    the aggregated-features variant of a coreset or of clustering."""
+    method = _ALIASES.get(method, method)
+    if method not in _PORTED:
+        raise ValueError(f"Unknown reduction method {method!r}; "
+                         f"available: {sorted(_PORTED)}")
+    module, cls, agg_cls = _PORTED[method]
+    if agg and agg_cls is not None:
+        cls = agg_cls
+    mod = importlib.import_module(f"graphslim_tpu_torch.reduce.{module}")
+    return getattr(mod, cls)
+
+
 def create_reducer(method: str, data, args, **kwargs):
     """Instantiate a reducer on ``data``'s device (``args.agg`` selects
     the aggregated-features variant of a coreset or of clustering);
     ``kwargs`` (e.g. ``labels_syn_override``) pass through to the
     reducer."""
-    method = _ALIASES.get(method, method)
-    if method in _QUEUED:
-        raise NotImplementedError(
-            f"reduction method {method!r} is not ported yet (ROADMAP.md, "
-            f"queue 1, item {_QUEUED[method]})")
-    if method not in _PORTED:
-        raise ValueError(f"Unknown reduction method {method!r}; "
-                         f"available: {sorted(_PORTED)}")
-    module, cls, agg_cls = _PORTED[method]
-    if getattr(args, "agg", False) and agg_cls is not None:
-        cls = agg_cls
-    mod = importlib.import_module(f"graphslim_tpu_torch.reduce.{module}")
-    return getattr(mod, cls)(data, args, **kwargs)
+    cls = reducer_class(method, getattr(args, "agg", False))
+    return cls(data, args, **kwargs)

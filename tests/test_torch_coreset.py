@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_shared import one_thread as _one_thread  # noqa: F401
 
 from graphslim_tpu.config import Args as JArgs, finalize as jfinalize
 from graphslim_tpu.data import load as jload

@@ -18,6 +18,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_shared import one_thread as _one_thread  # noqa: F401
 
 import graphslim_tpu.reduce.gcsntk as JG
 from graphslim_tpu.config import Args as JArgs, finalize as jfinalize
@@ -28,16 +29,6 @@ import graphslim_tpu_torch.reduce.gcsntk as TG
 from graphslim_tpu_torch.config import Args, finalize
 from graphslim_tpu_torch.data import load
 from graphslim_tpu_torch.reduce import create_reducer
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Small tensors: one intra-op thread, so the suite's parallel workers
-    do not oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _pair(tmp_path, **kw):

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 import torch
+from torch_shared import one_thread as _one_thread  # noqa: F401
 
 from graphslim_tpu.config import Args as JArgs, finalize as jfinalize
 from graphslim_tpu.data import load as jload
@@ -33,16 +34,6 @@ from graphslim_tpu_torch.config import Args, finalize
 from graphslim_tpu_torch.data import load
 from graphslim_tpu_torch.reduce import create_reducer
 from graphslim_tpu_torch.reduce import gdem as TD
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Small tensors: one intra-op thread, so the suite's parallel workers
-    do not oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _arpack_test_graph():

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_shared import one_thread as _one_thread  # noqa: F401
 
 from graphslim_tpu import models as JM
 from graphslim_tpu.config import Args as JArgs, finalize as jfinalize
@@ -38,16 +39,6 @@ from graphslim_tpu_torch.models.pge import PGE, PGEConfig
 from graphslim_tpu_torch.reduce import create_reducer
 
 NAME = "synth-ind-small"
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Small tensors: one intra-op thread, so the suite's parallel workers
-    do not oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

@@ -139,14 +139,34 @@ def test_cli_rejects_options_nothing_reads(flag, tmp_path):
 
 def test_unported_names_raise_with_their_roadmap_item():
     from graphslim_tpu_torch import models as M
-    from graphslim_tpu_torch.reduce import create_reducer
+    from graphslim_tpu_torch.eval import Evaluator
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         M.get_model("GAT", M.ModelConfig(nfeat=4, nhid=4, nclass=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_reducer("heavy_edge", None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_reducer("kron", None, None)
+    evaluator = Evaluator(None, None)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        evaluator._train_tuple(None, "GAT")
+
+
+def _jax_reducer_names():
+    from graphslim_tpu.reduce import registry
+
+    return sorted(registry.REGISTRY) + sorted(registry._ALIASES)
+
+
+@pytest.mark.parametrize("name", _jax_reducer_names())
+def test_every_jax_reducer_name_resolves_to_a_port_class(name):
+    from graphslim_tpu.reduce.registry import get_method_spec
+    from graphslim_tpu_torch.reduce.base import Reducer
+    from graphslim_tpu_torch.reduce.registry import reducer_class
+
+    spec = get_method_spec(name)
+    for agg in (False, True):
+        cls = reducer_class(name, agg)
+        assert issubclass(cls, Reducer)
+        assert cls.__module__ == f"graphslim_tpu_torch.reduce.{spec.module}"
+        assert cls.__name__ == (spec.agg_cls if agg and spec.agg_cls
+                                else spec.cls)
 
 
 @pytest.mark.parametrize("wrapper", ["spmm_blocked", "smem_gather"])

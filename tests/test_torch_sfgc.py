@@ -23,6 +23,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch_shared import one_thread as _one_thread  # noqa: F401
 
 from graphslim_tpu import graph as JG
 from graphslim_tpu.config import Args as JArgs, finalize as jfinalize
@@ -32,16 +33,6 @@ from graphslim_tpu_torch.config import Args, finalize
 from graphslim_tpu_torch.convert import model_params_from_jax
 from graphslim_tpu_torch.data import load
 from graphslim_tpu_torch.reduce import create_reducer
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Small tensors: one intra-op thread, so the suite's parallel workers
-    do not oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 TOL = 1e-4

@@ -12,20 +12,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_shared import one_thread as _one_thread  # noqa: F401
 
 from graphslim_tpu.models.sntk import SNTK as JSNTK
 from graphslim_tpu.models.sntk import krr_forward as jkrr
 from graphslim_tpu_torch.models.sntk import SNTK, krr_forward
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Small tensors: one intra-op thread, so the suite's parallel workers
-    do not oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _inputs(seed=0, n_t=14, n_s=9, d=6, C=3):

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 from jax.flatten_util import ravel_pytree
+from torch_shared import one_thread as _one_thread  # noqa: F401
 
 from graphslim_tpu import graph as JG
 from graphslim_tpu import models as JM
@@ -36,16 +37,6 @@ from graphslim_tpu_torch.convert import (flatten_params,
 from graphslim_tpu_torch.data import load, load_reduced, save_reduced
 from graphslim_tpu_torch.graph import Reduced
 from graphslim_tpu_torch.train_all import run
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Small tensors: one intra-op thread, so the suite's parallel workers
-    do not oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 from hypothesis import given, settings, strategies as st
+from torch_shared import one_thread as _one_thread  # noqa: F401
 
 from graphslim_tpu import graph as JG
 from graphslim_tpu.kernels import segment as JS

@@ -119,7 +119,8 @@ def test_gather_dispatch_counts_launches(card):
         SG.gather_rows_cuda(x.double(), idx)
 
 
-@pytest.mark.parametrize("d", [1, 2, 7, 16, 40, 41, 128, 129, 200, 256])
+@pytest.mark.parametrize("d", [1, 2, 3, 7, 16, 40, 41, 128, 129, 200,
+                               256, 1434])
 @pytest.mark.parametrize("sizes", [
     dict(td=128, ts=128, chunk=256, stage_min=128),       # staged blocks
     dict(td=128, ts=128, chunk=256, stage_min=10 ** 9),   # direct only
@@ -139,6 +140,30 @@ def test_spmm_matches_plain_and_float64(card, d, sizes):
     assert (out - ref).abs().max() <= tol
     assert (out.double() - f64).abs().max() <= tol
     assert (out[n // 3: n // 2] == 0).all()
+    assert torch.equal(out, SB.spmm_blocked(layout, x))
+
+
+@pytest.mark.parametrize("d", [7, 1434])
+@pytest.mark.parametrize("sizes", [
+    dict(td=128, ts=128, chunk=256, stage_min=128), dict()])
+def test_spmm_on_nearly_full_tiles(card, d, sizes):
+    """A graph whose tiles are nearly full, as Kron's coarse graphs are
+    (the cora twin's: 979 rows, about 955 entries a row)."""
+    n = 400
+    rng = np.random.default_rng(d)
+    row, col = np.nonzero(rng.random((n, n)) < 0.95)
+    w = rng.uniform(0.1, 1.0, row.shape[0]).astype(np.float32)
+    adj = G.from_edge_index(np.stack([row, col]), n, edge_weight=w,
+                            device=card)
+    layout = adj.blocked(**sizes)
+    x = torch.randn(n, d, generator=torch.Generator(device=card).manual_seed(
+        d), device=card)
+    out = SB.spmm_blocked(layout, x)
+    torch.cuda.synchronize()
+    f64 = adj.to_dense().double() @ x.double()
+    tol = 1e-5 * float(f64.abs().max()) + 1e-6
+    assert (out - SB.spmm_blocked_plain(layout, x)).abs().max() <= tol
+    assert (out.double() - f64).abs().max() <= tol
     assert torch.equal(out, SB.spmm_blocked(layout, x))
 
 
