@@ -140,15 +140,33 @@ line of output each, any failed check raises (non-zero exit):
    after random_edge) and of the pubmed coarse graph with the most
    entries, at the widths their evaluations launched (cora 7 and 1434,
    the references on slabs of 256 columns), against its plain version
-   and float64, bit for bit on a repeat.
+   and float64, bit for bit on a repeat;
+14. the model zoo: (a) ``Evaluator.train_cross`` over the eight models
+   (MLP, GCN, SGC, APPNP, Cheby, GraphSage, GAT, SGFormer) on the shipped
+   arxiv artifact at the evaluator's width (hidden 256, GAT 8 heads of
+   32, SGFormer 2 transformer layers; 1 seed × 300 epochs), each above
+   the test split's largest-class share, with its evaluate seconds, ms an
+   epoch, SpMM launches by width, peak memory and idle share; (b) APPNP's
+   16-combination ``grid_search`` and its choice; (c) one GAT layer on
+   the arxiv twin's ELL layout (buckets, heavy rows, padded slots, build
+   seconds and bytes), timed with bf16 messages and in float32 beside its
+   byte bound and the segment path, held against the segment path, a
+   float64 layer on sampled rows, and as a whole model (float32 within 2e-3
+   / 2e-4; bf16 argmax agreement ≥ 0.99, within 0.05); (d) ``random`` on
+   the flickr twin, then ``train_cross`` over the eight (GAT through the
+   segment path on the val and test subgraphs), each finite; then the
+   blocked SpMM at every (graph, width) the phase launched
+   (``ZOO_HELD``: the arxiv Â at 40, 128, 129, 256; flickr's selected
+   subgraph and its val and test subgraphs at 500, 501, 7, 256) against
+   its plain version and float64, bit for bit on a repeat.
 
 Phases 6 and 7 run before phase 4.  The line before the last is the
-``kernels`` JSON (launches: phases 4, 8, 9, 10, 11, 12 and 13); the last
-line is ``{"ok": true, "device": {...}}``.  ``--only kernels`` stops after
-the kernel comparisons (phases 2, 3, 6, 7); ``--only condense`` runs phase
-9 alone (after the build), ``--only cluster`` phase 10, ``--only distill``
-phase 11, ``--only ind`` phase 12 and ``--only coarsen`` phase 13, and none
-of them prints a result.
+``kernels`` JSON (launches: phases 4, 8, 9, 10, 11, 12, 13 and 14); the
+last line is ``{"ok": true, "device": {...}}``.  ``--only kernels`` stops
+after the kernel comparisons (phases 2, 3, 6, 7); ``--only condense`` runs
+phase 9 alone (after the build), ``--only cluster`` phase 10, ``--only
+distill`` phase 11, ``--only ind`` phase 12, ``--only coarsen`` phase 13
+and ``--only zoo`` phase 14, and none of them prints a result.
 Without a CUDA card, or outside a checkout, it exits non-zero and prints
 no result.
 """
@@ -2453,14 +2471,16 @@ def same_triple(a, b) -> bool:
             and torch.equal(a.adj.values_or_ones(), b.adj.values_or_ones()))
 
 
-def compare_spmm_reduced(SB, G, tag: str, raw, widths, stats: dict) -> None:
+def compare_spmm_reduced(SB, G, tag: str, raw, widths, stats: dict,
+                         normalized: bool = False) -> None:
     """The blocked SpMM on a reduced graph's normalized Â (what the
-    evaluator trains on) at the widths its evaluation launched, against
-    the plain version and float64, bit for bit on a repeat; timed beside
-    the plain version, ``torch.sparse.mm`` and its bound."""
+    evaluator trains on; ``raw`` itself when ``normalized``) at the widths
+    its evaluation launched, against the plain version and float64, bit
+    for bit on a repeat; timed beside the plain version,
+    ``torch.sparse.mm`` and its bound."""
     import torch
 
-    adj = G.gcn_norm(raw)
+    adj = raw if normalized else G.gcn_norm(raw)
     layout = adj.blocked()
     csr = adj.to_csr()
     n, nnz = adj.n_rows, adj.nnz
@@ -2666,10 +2686,371 @@ def run_coarsen(SB, G, arxiv, tmp: str, stats: dict) -> dict:
     return {"spmm_blocked": total}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the model zoo and cross-architecture evaluation
+# ---------------------------------------------------------------------------
+
+# The (graph, width) pairs phase 14 gives the blocked SpMM: on the arxiv
+# Â the hoisted [X | 1] (129), the class count (40: GCN's second layer,
+# APPNP's steps), the features (128: Cheby's X + ÂX, GraphSage's first
+# layer) and the hidden width (256: Cheby's and GraphSage's second layer,
+# SGFormer's graph branch); on flickr's selected subgraph and its val and
+# test subgraphs the same with flickr's 500 features and 7 classes
+ZOO_HELD = {"arxiv": (40, 128, 129, 256), "flickr": (500, 501, 7, 256)}
+# GAT's layer-1 shape at the evaluator's width: 8 heads of 32
+GAT_HEADS, GAT_HID = 8, 256
+
+
+IDLE_EPOCHS = 20     # the profiled fit that gives a model's idle share
+
+
+def profiled_busy(fn) -> tuple:
+    """(wall ms, device-busy ms) of ``fn()`` under torch.profiler tracing
+    the card, the wall taken inside the trace (its start-up and parsing
+    left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    busy = sum(device_time_by_kernel(prof).values())
+    if not busy > 0:
+        fail("torch.profiler recorded no device time")
+    return wall, busy
+
+
+def zoo_evaluator(SB, SG, rows: list, totals: dict, widths_seen: set):
+    """An ``Evaluator`` whose ``evaluate`` records a row per call: wall
+    seconds, ms per epoch of its fits, blocked-SpMM launches by width and
+    gathers (counted from 0 and read just after it), peak GiB and, unless
+    ``profile`` is off, the idle share: 1 − device busy / wall of a
+    profiled ``IDLE_EPOCHS``-epoch fit on the same inputs, run after the
+    counts are read (a trace of all 300 epochs takes longer to parse than
+    the evaluation takes to run).  Every width it launched the SpMM at
+    goes into ``widths_seen``."""
+    import dataclasses
+
+    import torch
+
+    from graphslim_tpu_torch import models as M
+    from graphslim_tpu_torch.eval import Evaluator
+
+    class ZooEvaluator(Evaluator):
+        profile = True
+
+        def evaluate(self, reduced, model_type="GCN", *a, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            SB.reset_launches()
+            SG.reset_launches()
+            fits, calls = [], []
+            real_fit = M.fit_with_val
+
+            def timed_fit(*fa, **fk):
+                calls.append((fa, fk))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = real_fit(*fa, **fk)
+                torch.cuda.synchronize()
+                fits.append(time.perf_counter() - t0)
+                return out
+
+            M.fit_with_val = timed_fit
+            try:
+                t0 = time.perf_counter()
+                out = Evaluator.evaluate(self, reduced, model_type, *a,
+                                         **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                M.fit_with_val = real_fit
+            widths = dict(SB.LAUNCHES_BY_WIDTH)
+            widths_seen.update(widths)
+            totals["spmm_blocked"] += sum(widths.values())
+            totals["smem_gather"] += SG.LAUNCHES["smem_gather"]
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            idle = float("nan")
+            if self.profile:
+                fa, fk = calls[0]
+                fk = dict(fk, cfg=dataclasses.replace(fk["cfg"],
+                                                      epochs=IDLE_EPOCHS))
+                ms, busy = profiled_busy(lambda: real_fit(*fa, **fk))
+                idle = 1.0 - busy / ms
+            rows.append(dict(
+                model=model_type, score=out[0][0], seconds=wall,
+                widths=widths, peak=peak, idle=idle,
+                ms_epoch=1e3 * sum(fits) / max(len(fits)
+                                               * self.args.eval_epochs, 1)))
+            return out
+
+    return ZooEvaluator
+
+
+def zoo_table(tag: str, rows: list, table: dict, share: float,
+              gate: bool) -> None:
+    """One line per model; fails on a non-finite entry, and with ``gate``
+    on one at or below the test split's largest-class share."""
+    import math
+
+    bad = []
+    for mt, (mean, std) in table.items():
+        r = next((r for r in rows if r["model"] == mt), None)
+        cols = "" if r is None else (
+            f"evaluate {r['seconds']:.2f} s, {r['ms_epoch']:.3f} ms an "
+            f"epoch, SpMM launches "
+            + (", ".join(f"d={d} {c}" for d, c in sorted(r["widths"].items()))
+               or "none")
+            + f", peak {r['peak']:.2f} GiB, idle {r['idle']:.3f} (a "
+            f"{IDLE_EPOCHS}-epoch profiled fit)")
+        log(f"phase 14 {tag} {mt}: {mean:.4f} ± {std:.4f}; {cols}")
+        if not (math.isfinite(mean) and math.isfinite(std)):
+            bad.append(f"{mt} {mean} ± {std}")
+        elif gate and not mean > share:
+            bad.append(f"{mt} {mean:.4f} <= the largest-class share "
+                       f"{share:.4f}")
+    from graphslim_tpu_torch.eval import Evaluator
+
+    if set(table) != set(Evaluator.MODELS):
+        bad.append(f"models {sorted(table)}")
+    if bad:
+        fail(f"phase 14 {tag}: " + "; ".join(bad))
+
+
+def f64_attention_rows(sp, rows, a_d, a_s, feat):
+    """GAT's edge softmax and aggregation in float64 at ``rows`` of the
+    normalized ``sp`` → ``[len(rows), H, h]``."""
+    import torch
+    import torch.nn.functional as F
+
+    from graphslim_tpu_torch.kernels.segment import (segment_softmax,
+                                                     segment_sum)
+
+    starts, ends = sp.indptr[rows], sp.indptr[rows + 1]
+    counts = ends - starts
+    er = torch.repeat_interleave(torch.arange(rows.shape[0],
+                                              device=rows.device), counts)
+    first = torch.cumsum(counts, 0) - counts
+    eid = starts[er] + torch.arange(er.shape[0], device=rows.device) \
+        - first[er]
+    col, val = sp.col[eid], sp.val[eid].double()
+    s = F.leaky_relu(a_d.double()[rows][er] + a_s.double()[col], 0.2)
+    att = segment_softmax(s, er, rows.shape[0]) * val[:, None]
+    return segment_sum(feat.double()[col] * att[..., None], er,
+                       rows.shape[0])
+
+
+def run_gat_ell(ds, stats: dict) -> None:
+    """(c): one GAT layer at full width on the arxiv twin's ELL, at
+    inference (bf16 messages) and in float32, timed beside its bound and
+    the segment path; held against the segment path, float64 on sampled
+    rows, and as a whole model against the segment path."""
+    import torch
+
+    from graphslim_tpu_torch import models as M
+    from graphslim_tpu_torch.kernels.ell import attention_ell
+
+    ell = ds.adj_norm_ell()
+    sp = ds.adj_norm()
+    ks = sorted({int(b.idx.shape[1]) for b in ell.buckets})
+    heavy_e = 0 if ell.heavy_col is None else ell.heavy_col.shape[0]
+    log(f"phase 14 (c) arxiv ELL: {len(ell.buckets)} bucket parts (K = "
+        f"{ks}), {ell.n_heavy} heavy rows with {heavy_e} entries in "
+        f"{len(ell.chunks())} chunk(s), {ell.nnz} padded slots for "
+        f"{sp.nnz} entries ({ell.nnz / sp.nnz:.3f}x), built in "
+        f"{ell.build_seconds:.2f} s, {ell.nbytes() / 1e6:.1f} MB")
+    cfg = M.ModelConfig(nfeat=ds.n_feat, nhid=GAT_HID, nclass=ds.nclass,
+                        nheads=GAT_HEADS, dropout=0.0)
+    model = M.get_model("GAT", cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(14))
+    x, n = ds.feat, ds.n_nodes
+    H, h = GAT_HEADS, GAT_HID // GAT_HEADS
+    bad: list = []
+    with torch.no_grad():
+        feat = (x @ params["w1"]).reshape(n, H, h)
+        a_d = torch.einsum("nhd,hd->nh", feat, params["a1"][0])
+        a_s = torch.einsum("nhd,hd->nh", feat, params["a1"][1])
+        fbf = feat.to(torch.bfloat16)
+        out32 = attention_ell(ell, a_d, a_s, feat)
+        outbf = attention_ell(ell, a_d, a_s, fbf)
+        # the heavy tail's segment sums are atomic adds on the card, so a
+        # repeat agrees to rounding, not bit for bit
+        e_rep = check_close("bf16 ELL layer repeated", attention_ell(
+            ell, a_d, a_s, fbf).float(), outbf.float(), (8e-3, 1e-4), bad)
+        seg = model._attn_layer(x, sp, params["w1"], params["a1"], H,
+                                False, None, 0.0).reshape(n, H, h)
+        e_seg = check_close("f32 ELL layer vs segment", out32, seg,
+                            (2e-3, 2e-4), bad)
+        # 4096 random rows, each bucket part's first and the heavy rows
+        gen = torch.Generator(device=x.device).manual_seed(15)
+        rows = torch.cat([
+            torch.randint(0, n, (4096,), generator=gen, device=x.device),
+            torch.stack([b.rows[0] for b in ell.buckets]),
+            ell.heavy_rows if ell.heavy_rows is not None
+            else torch.zeros(0, dtype=torch.int64, device=x.device)
+        ]).unique()
+        ref = f64_attention_rows(sp, rows, a_d, a_s, feat)
+        refbf = f64_attention_rows(sp, rows, a_d,
+                                   a_s.to(torch.bfloat16).float(),
+                                   fbf.float())
+        e64 = check_close("f32 ELL layer vs float64", out32[rows].double(),
+                          ref, (1e-4, 1e-5), bad)
+        e64s = check_close("segment layer vs float64", seg[rows].double(),
+                           ref, (1e-4, 1e-5), bad)
+        ebf = check_close("bf16 ELL layer vs float64 of its bf16 inputs",
+                          outbf[rows].double(), refbf, (8e-3, 1e-4), bad)
+        ebf64 = check_close("bf16 ELL layer vs float64", outbf[rows].double(),
+                            ref, (5e-2, 5e-2), bad)
+        ms_bf = median_ms(lambda: attention_ell(ell, a_d, a_s, fbf), 10)
+        ms32 = median_ms(lambda: attention_ell(ell, a_d, a_s, feat), 10)
+        ms_seg = median_ms(lambda: model._attn_layer(
+            x, sp, params["w1"], params["a1"], H, False, None, 0.0), 10)
+        # whole model: float32 ELL (the training path at dropout 0) and
+        # the bf16 inference path against the segment path
+        m_seg = model.apply(params, x, sp)
+        m32 = model.apply(params, x, ell, training=True)
+        mbf = model.apply(params, x, ell)
+        if not ((m32 - m_seg).abs() <= 2e-4 + 2e-3 * m_seg.abs()).all():
+            bad.append(f"GAT float32 ELL vs segment: max|Δ| "
+                       f"{max_err(m32, m_seg):.3e} beyond 2e-3 / 2e-4")
+        agree = float((mbf.argmax(1) == m_seg.argmax(1)).float().mean())
+        if not agree >= 0.99:
+            bad.append(f"GAT bf16 argmax agreement {agree:.4f} < 0.99")
+        if not ((mbf - m_seg).abs() <= 0.05 + 0.05 * m_seg.abs()).all():
+            bad.append(f"GAT bf16 vs segment: max|Δ| "
+                       f"{max_err(mbf, m_seg):.3e} beyond 0.05")
+    bound = {dt: ell.nnz * (H + H * h) * size / PEAK_BYTES * 1e3
+             for dt, size in (("bf16", 2), ("f32", 4))}
+    log(f"phase 14 (c) GAT layer 1 (n {n}, {H} heads x {h}) on the ELL: "
+        f"bf16 messages {ms_bf:.3f} ms (bound {bound['bf16']:.3f} ms by "
+        f"bytes, {ms_bf / bound['bf16']:.1f}x), float32 {ms32:.3f} ms "
+        f"(bound {bound['f32']:.3f}, {ms32 / bound['f32']:.1f}x), segment "
+        f"path {ms_seg:.3f} ms; max|Δ| f32 vs segment {e_seg:.2e}, vs "
+        f"float64 {e64:.2e} (segment {e64s:.2e}) on {rows.shape[0]} rows, "
+        f"bf16 vs float64 of its inputs {ebf:.2e} (vs float64 {ebf64:.2e}; "
+        f"a repeat {e_rep:.2e}); "
+        f"model: f32 max|Δ| {max_err(m32, m_seg):.2e}, bf16 argmax "
+        f"agreement {agree:.4f}, max|Δ| {max_err(mbf, m_seg):.2e}")
+    stats["gat_ell"] = dict(ms_bf16=ms_bf, ms_f32=ms32, ms_segment=ms_seg,
+                            bound_bf16=bound["bf16"], bound_f32=bound["f32"])
+    del feat, fbf, out32, outbf, seg, ref, refbf, m_seg, m32, mbf
+    torch.cuda.empty_cache()
+    if bad:
+        fail("phase 14 (c) GAT on the ELL:\n  " + "\n  ".join(bad))
+
+
+def run_zoo(SB, SG, G, ds, tmp: str, stats: dict) -> dict:
+    """Phase 14: (a) ``train_cross`` over the eight models on the shipped
+    arxiv artifact (hidden 256, GAT 8 heads x 32, SGFormer 2 transformer
+    layers; 300 epochs, 1 seed); (b) APPNP's 16-combination
+    ``grid_search``; (c) GAT on the arxiv twin's ELL (``run_gat_ell``);
+    (d) ``random`` on the flickr twin at its rate, then ``train_cross``
+    over the eight; then the blocked SpMM at the (graph, width) pairs the
+    phase launched (``ZOO_HELD``).  Returns the phase's launches."""
+    import numpy as np
+    import torch
+
+    from graphslim_tpu_torch.config import Args, finalize
+    from graphslim_tpu_torch.data import read_npz
+    from graphslim_tpu_torch.reduce import create_reducer
+
+    t_phase = time.perf_counter()
+    totals = {"spmm_blocked": 0, "smem_gather": 0}
+    rows: list = []
+    launched: set = set()
+    ZooEvaluator = zoo_evaluator(SB, SG, rows, totals, launched)
+
+    # --- (a) ---------------------------------------------------------------
+    args = finalize(Args(dataset="ogbn-arxiv", method="gcond", run_eval=1,
+                         eval_epochs=300, device="cuda"),
+                    explicit={"run_eval", "eval_epochs"})
+    art = read_npz(os.path.join(HERE, "benchmark", "artifacts",
+                                "arxiv_gcond_r0.01.npz"), device="cuda")
+    labels = ds.labels.cpu().numpy()[ds.idx_test]
+    share = float(np.bincount(labels).max() / labels.shape[0])
+    ev = ZooEvaluator(ds, args)
+    t0 = time.perf_counter()
+    table = ev.train_cross(art)
+    log(f"phase 14 (a) arxiv artifact, train_cross over {len(table)} "
+        f"models (hidden {args.hidden}, 1 seed x {args.eval_epochs} "
+        f"epochs): {time.perf_counter() - t0:.1f} s; the test split's "
+        f"largest class holds {share:.4f}")
+    zoo_table("(a) arxiv", rows, table, share, gate=True)
+
+    # --- (b) ---------------------------------------------------------------
+    rows.clear()
+    ev.profile = False
+    t0 = time.perf_counter()
+    (mean, std), combo = ev.grid_search(art, "APPNP")
+    n_combo = len(rows)
+    if not (math.isfinite(mean) and math.isfinite(std)) or n_combo != 16:
+        fail(f"phase 14 (b): APPNP grid {mean} ± {std} over {n_combo} "
+             "combinations")
+    log(f"phase 14 (b) APPNP grid_search over {n_combo} combinations: "
+        f"{time.perf_counter() - t0:.1f} s, chose {combo}: {mean:.4f} ± "
+        f"{std:.4f}; scores "
+        + ", ".join(f"{r['score']:.4f}" for r in rows))
+
+    # --- (c) ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    run_gat_ell(ds, stats)
+    log(f"phase 14 (c): {time.perf_counter() - t0:.1f} s")
+    del art, ev
+    torch.cuda.empty_cache()
+
+    # --- (d) ---------------------------------------------------------------
+    rows.clear()
+    flickr, _ = load_ind_twin("flickr")
+    fargs = ind_args("flickr", "random", os.path.join(tmp, "flickr"), 1)
+    SB.reset_launches()
+    SG.reset_launches()
+    t0 = time.perf_counter()
+    red = create_reducer("random", flickr, fargs).reduce(flickr)
+    torch.cuda.synchronize()
+    launched.update(SB.LAUNCHES_BY_WIDTH)
+    totals["smem_gather"] += SG.LAUNCHES["smem_gather"]
+    totals["spmm_blocked"] += sum(SB.LAUNCHES_BY_WIDTH.values())
+    log(f"phase 14 (d) flickr random at r = {fargs.reduction_rate}: n_syn "
+        f"{red.n_syn}, {red.adj.nnz} entries, "
+        f"{time.perf_counter() - t0:.2f} s, {SG.LAUNCHES['smem_gather']} "
+        "gathers")
+    fshare = float(np.bincount(flickr.labels_test.cpu().numpy()).max()
+                   / flickr.labels_test.shape[0])
+    t0 = time.perf_counter()
+    ftable = ZooEvaluator(flickr, fargs).train_cross(red)
+    log(f"phase 14 (d) flickr train_cross: {time.perf_counter() - t0:.1f} "
+        f"s; the test subgraph's largest class holds {fshare:.4f}")
+    zoo_table("(d) flickr", rows, ftable, fshare, gate=False)
+
+    # --- the blocked SpMM at the phase's (graph, width) pairs --------------
+    held = set(ZOO_HELD["arxiv"]) | set(ZOO_HELD["flickr"])
+    if not launched <= held:
+        fail(f"phase 14 launched the SpMM at widths {sorted(launched)}, "
+             f"held at {sorted(held)}")
+    compare_spmm_reduced(SB, G, "arxiv", ds.adj_norm(), ZOO_HELD["arxiv"],
+                         stats, normalized=True)
+    compare_spmm_reduced(SB, G, "flickr random", red.adj,
+                         ZOO_HELD["flickr"], stats)
+    for split in ("val", "test"):
+        compare_spmm_reduced(SB, G, f"flickr {split}",
+                             flickr.view_norm(split), ZOO_HELD["flickr"],
+                             stats, normalized=True)
+    del flickr, red
+    torch.cuda.empty_cache()
+    log(f"phase 14: {totals['spmm_blocked']} blocked-SpMM launches, "
+        f"{totals['smem_gather']} gathers, "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=["kernels", "condense", "cluster",
-                                       "distill", "ind", "coarsen"],
+                                       "distill", "ind", "coarsen", "zoo"],
                     default=None)
     opts = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "graphslim_tpu_torch")):
@@ -2719,9 +3100,11 @@ def main() -> None:
     ds = load("ogbn-arxiv", seed=0, device="cuda")
     log(f"load ogbn-arxiv twin: {ds.n_nodes} nodes, {ds.adj.nnz} edges, "
         f"{time.perf_counter() - t0:.1f} s")
-    if opts.only in ("condense", "cluster", "distill", "coarsen"):
+    if opts.only in ("condense", "cluster", "distill", "coarsen", "zoo"):
         with tempfile.TemporaryDirectory() as tmp:
-            if opts.only == "coarsen":
+            if opts.only == "zoo":
+                run_zoo(SB, SG, G, ds, tmp, {})
+            elif opts.only == "coarsen":
                 run_coarsen(SB, G, ds, tmp, {})
             elif opts.only == "condense":
                 run_condensers(K, SB, ds, tmp)
@@ -2807,6 +3190,11 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         coarse = run_coarsen(SB, G, ds, tmp, stats)
 
+    # --- phase 14 --------------------------------------------------------
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        zoo = run_zoo(SB, SG, G, ds, tmp, stats)
+
     src = "graphslim_tpu_torch/csrc/"
     kernels = [
         # ms: the launch kind that keeps the workspace (syn_adj_norm);
@@ -2827,13 +3215,14 @@ def main() -> None:
              replaces="graphslim_tpu/kernels/pallas_spmm_blocked.py:198",
              launches=core["spmm_blocked"] + cond["spmm_blocked"]
              + clus["spmm_blocked"] + dist["spmm_blocked"]
-             + ind["spmm_blocked"] + coarse["spmm_blocked"],
+             + ind["spmm_blocked"] + coarse["spmm_blocked"]
+             + zoo["spmm_blocked"],
              **stats["spmm_blocked_d256"]),
         dict(name="smem_gather", route="cuda",
              source=src + "smem_gather.cu",
              replaces="benchmark/probe_spmm.py:82",
              launches=core["smem_gather"] + dist["smem_gather"]
-             + ind["smem_gather"],
+             + ind["smem_gather"] + zoo["smem_gather"],
              **stats["smem_gather"]),
     ]
     for k in kernels:

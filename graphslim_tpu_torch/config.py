@@ -54,6 +54,7 @@ class Args:
     init: str = "random"
     alpha: float = 0.1
     activation: str = "relu"
+    trans_layers: int = 2                  # SGFormer's transformer depth
     # SGDD (IGNR generator, spectral-OT regularizer)
     mx_size: int = 100
     opt_scale: float = 1e-11

@@ -52,17 +52,28 @@ def ignr_params_from_jax(tree: dict, device=None) -> dict:
     return out
 
 
+_MODELS = ("MLP", "GCN", "SGC", "APPNP", "Cheby", "ChebNet", "GraphSage",
+           "SAGE", "GAT", "SGFormer")
+
+
 def model_params_from_jax(name: str, tree: dict, device=None) -> dict:
-    """JAX SGC/GCN params (``{"layers": [{"w", "b"}], "bns"?: [...]}``,
-    the BatchNorms of a model built ``with_bn``) → the port's."""
-    if name not in ("SGC", "GCN"):
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP.md, queue 1, "
-            "item 12)")
-    out = {"layers": [_linear(p, device) for p in tree["layers"]]}
-    if "bns" in tree:
-        out["bns"] = [_linear(p, device) for p in tree["bns"]]
-    return out
+    """JAX params of any model of the zoo → the port's, same structure:
+    MLP/GCN/SGC/APPNP ``{"layers": [{"w", "b"}], "bns"?: [...]}``; Cheby
+    ``layers[i] = {"lin": {"w"}, "b"}``; GraphSage ``{"lin": {"w"}}``;
+    GAT ``w1, a1, w2, a2``; SGFormer ``t_fc, t_ln[], t_conv[]{wq, wk,
+    wv}, g_fc, g_bn[], g_conv[], out``."""
+    if name not in _MODELS:
+        raise ValueError(f"unknown model {name!r}; available: "
+                         f"{sorted(_MODELS)}")
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [walk(v) for v in t]
+        return _t(t, device)
+
+    return walk(tree)
 
 
 def flatten_params(tree) -> torch.Tensor:

@@ -1,19 +1,27 @@
 """Evaluator: train a fresh GNN on the reduced graph, test on the original.
 
-Counterpart of ``graphslim_tpu/eval/evaluator.py`` for SGC and GCN.  The
-JAX package vmaps the seeded runs into one program; here they run one
-after another.  Transductive datasets validate and test on the full graph
-at the split's rows; inductive ones on the val and test subgraphs, every
-row, through their normalized adjacencies cached on the dataset
-(``Dataset.split_batch``).  Sparse adjacencies are passed as
-``SparseAdj``, whose ``matmul`` is the SpMM dispatch.
+Counterpart of ``graphslim_tpu/eval/evaluator.py`` for the eight models of
+the zoo: ``evaluate`` (seeded runs), ``test`` (one run), ``grid_search``
+and ``train_cross`` (the cross-architecture table).  The JAX package vmaps
+the seeded runs into one program; here they run one after another, each
+drawing its initial parameters through :meth:`Evaluator.init_params`.
+Transductive datasets validate and test on the full graph at the split's
+rows: every model but GAT through the normalized ``SparseAdj`` (on the
+card, the blocked SpMM; the JAX package takes its ELL layout there), GAT
+through the ELL layout its edge softmax reads.  Inductive ones validate
+and test on the val and test subgraphs, every row, through their
+normalized adjacencies cached on the dataset (``Dataset.split_batch``;
+GAT takes the segment path on them).
 """
 
 from __future__ import annotations
 
+import copy
+import itertools
 import logging
 from typing import Optional
 
+import numpy as np
 import torch
 
 from graphslim_tpu_torch import graph as G
@@ -25,8 +33,42 @@ from graphslim_tpu_torch.utils import make_generator
 log = logging.getLogger("graphslim_tpu_torch")
 
 
+def _dense_to_sparse(adj: torch.Tensor) -> G.SparseAdj:
+    """The nonzeros of a dense ``[n, n]`` adjacency, on its device."""
+    a = adj.detach().cpu().numpy()
+    row, col = np.nonzero(a)
+    return G.from_edge_index(np.stack([row, col]), a.shape[0],
+                             edge_weight=a[row, col], dedup=False,
+                             device=adj.device)
+
+
 class Evaluator:
     """Evaluation agent bound to (dataset, args)."""
+
+    # Hyperparameter grids per architecture (reference
+    # ``eval_agent.py:119-145``).  As in the JAX package, an axis the
+    # evaluation does not read (weight_decay: fixed at 5e-4; ntrans: 1 in
+    # eval mode) leaves the result as it is.
+    GRID = {
+        "GCN": {"hidden": [64, 256], "lr": [0.01, 0.001],
+                "weight_decay": [0.0, 5e-4]},
+        "SGC": {"hidden": [64, 256], "lr": [0.01, 0.001],
+                "weight_decay": [0.0, 5e-4], "ntrans": [1, 2]},
+        "APPNP": {"hidden": [64, 256], "lr": [0.01, 0.001],
+                  "weight_decay": [0.0, 5e-4], "alpha": [0.1, 0.2]},
+        "Cheby": {"hidden": [64, 256], "lr": [0.01, 0.001],
+                  "weight_decay": [0.0, 5e-4]},
+        "GraphSage": {"hidden": [64, 256], "lr": [0.01, 0.001],
+                      "weight_decay": [0.0, 5e-4]},
+        "MLP": {"hidden": [64, 256], "lr": [0.01, 0.001],
+                "weight_decay": [0.0, 5e-4]},
+        "GAT": {"hidden": [64], "lr": [0.01, 0.001],
+                "weight_decay": [0.0, 5e-4]},
+        "SGFormer": {"trans_layers": [1, 2, 3], "lr": [0.01, 0.001],
+                     "weight_decay": [1e-3, 1e-4]},
+    }
+    MODELS = ("MLP", "GCN", "SGC", "APPNP", "Cheby", "GraphSage", "GAT",
+              "SGFormer")
 
     def __init__(self, data: G.Dataset, args):
         self.data = data
@@ -38,25 +80,42 @@ class Evaluator:
                             nclass=self.data.nclass, nlayers=a.nlayers,
                             dropout=0.0,         # eval mode: dropout=0
                             alpha=a.alpha, ntrans=1,  # eval: ntrans=1
+                            trans_layers=getattr(a, "trans_layers", 2),
                             activation=a.activation)
         return M.get_model(model_type, cfg)
 
     def _train_tuple(self, reduced: G.Reduced, model_type: str):
-        """Normalized synthetic training batch on the dataset's device."""
-        if model_type == "GAT":
-            raise NotImplementedError(
-                "GAT is not ported yet (ROADMAP.md, queue 1, item 12)")
+        """Normalized synthetic training batch on the dataset's device;
+        GAT takes the nonzeros of a dense result as a ``SparseAdj``."""
         red = sparsify(reduced, model_type, self.args.method,
                        threshold=self.args.threshold)
         dev = self.data.device
         adj = red.adj
-        if adj is None:
+        if model_type == "GAT":
+            if not isinstance(adj, G.SparseAdj):
+                adj = _dense_to_sparse(red.dense_adj())
+            adj_n = G.gcn_norm(adj).to(dev)
+        elif adj is None:
             adj_n = None
         elif isinstance(adj, G.SparseAdj):
             adj_n = G.gcn_norm(adj).to(dev)
         else:
             adj_n = G.normalize_adj_dense(adj.to(dev))
         return red.feat.to(dev), adj_n, red.labels.to(dev)
+
+    def _split_tuple(self, split: str, model_type: str):
+        """``(x, adj, y, idx)`` of the val or test split; a transductive
+        GAT reads the full graph's ELL layout."""
+        batch = self.data.split_batch(split)
+        if model_type == "GAT" and self.data.setting != "ind":
+            return (batch[0], self.data.adj_norm_ell()) + batch[2:]
+        return batch
+
+    def init_params(self, model_type: str, model, run: int,
+                    gen: torch.Generator) -> dict:
+        """Initial parameters of seeded run ``run``, drawn from ``gen`` (the
+        one seam through which a test hands in the JAX package's draw)."""
+        return model.init(gen)
 
     def evaluate(self, reduced: G.Reduced, model_type: str = "GCN",
                  runs: Optional[int] = None, seed: Optional[int] = None,
@@ -70,8 +129,8 @@ class Evaluator:
                              "there is nothing to train on")
         model = self._eval_model(model_type, reduced.feat.shape[-1])
         tx, tadj, ty = self._train_tuple(reduced, model_type)
-        val = self.data.split_batch("val")
-        test = self.data.split_batch("test")
+        val = self._split_tuple("val", model_type)
+        test = self._split_tuple("test", model_type)
         # a batch of skeleton graphs (MSGC) is not hoisted, as in the JAX
         # package
         plan = None if M.is_skeleton_batch(tadj) else hoist_plan(model)
@@ -84,9 +143,11 @@ class Evaluator:
                             weight_decay=5e-4, metric=a.metric)
         gen = make_generator(seed, self.data.device)
         accs, best_vals = [], []
-        for _ in range(runs):
+        for r in range(runs):
+            params0 = self.init_params(model_type, model, r, gen)
             params, best_val, _ = M.fit_with_val(
-                model, gen, train=(tx, tadj, ty, None), val=val, cfg=cfg)
+                model, gen, train=(tx, tadj, ty, None), val=val, cfg=cfg,
+                params0=params0)
             accs.append(M.evaluate(model, params, *test, metric=a.metric))
             best_vals.append(best_val)
         accs = torch.stack(accs).cpu().numpy()
@@ -98,3 +159,62 @@ class Evaluator:
             print(f"eval[{model_type}] {runs} runs: "
                   f"{mean * 100:.2f} ± {std * 100:.2f}")
         return (mean, std), (accs, best_vals)
+
+    def test(self, reduced: G.Reduced, model_type: str = "GCN",
+             seed: int = 0, verbose: bool = False) -> float:
+        """One seeded evaluation run → its test metric."""
+        (mean, _), _ = self.evaluate(reduced, model_type, runs=1, seed=seed,
+                                     verbose=verbose)
+        return mean
+
+    def grid_search(self, reduced: G.Reduced, model_type: str,
+                    param_grid: Optional[dict] = None,
+                    verbose: bool = False):
+        """(test (mean, std), combination) of the combination with the best
+        mean validation metric over its seeded runs; the first such in the
+        grid's order (keys sorted) on a tie."""
+        grid = param_grid or self.GRID.get(model_type, self.GRID["GCN"])
+        keys = sorted(grid)
+        best_val, best_test, best_params = -1.0, (float("nan"),) * 2, None
+        for combo in itertools.product(*(grid[k] for k in keys)):
+            params = dict(zip(keys, combo))
+            sub = copy.copy(self)
+            sub.args = self.args.replace(**{
+                k: v for k, v in params.items() if hasattr(self.args, k)})
+            (mean, std), (_, vals) = sub.evaluate(reduced, model_type)
+            val_score = float(np.mean(vals))
+            if val_score > best_val:
+                best_val, best_test, best_params = val_score, (mean, std), \
+                    params
+            if verbose:
+                print(f"{model_type} {params}: {mean * 100:.2f}")
+        return best_test, best_params
+
+    def train_cross(self, reduced: G.Reduced,
+                    model_types: Optional[list] = None,
+                    use_grid: bool = False,
+                    verbose: bool = False) -> dict:
+        """``{model: (mean, std)}`` over the zoo; a model whose evaluation
+        raises is logged as a warning and scores (nan, nan), as in the JAX
+        package."""
+        out = {}
+        for mt in model_types or self.MODELS:
+            try:
+                if use_grid:
+                    out[mt], _ = self.grid_search(reduced, mt,
+                                                  verbose=verbose)
+                else:
+                    out[mt], _ = self.evaluate(reduced, mt,
+                                               verbose=verbose)
+            except Exception as e:   # GAT on an empty sparse graph etc.
+                log.warning("train_cross[%s] failed: %s", mt, e)
+                out[mt] = (float("nan"), float("nan"))
+        return out
+
+    def tsne_vis(self, *args, **kwargs):
+        raise NotImplementedError("Evaluator.tsne_vis is not ported yet "
+                                  "(ROADMAP.md, queue 1, item 13)")
+
+    def nas_evaluate(self, *args, **kwargs):
+        raise NotImplementedError("Evaluator.nas_evaluate is not ported yet "
+                                  "(ROADMAP.md, queue 1, item 13)")

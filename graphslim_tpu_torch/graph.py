@@ -12,12 +12,14 @@ package, and the result is moved to the dataset's device once.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from graphslim_tpu_torch.kernels import spmm_blocked as _blocked
+from graphslim_tpu_torch.kernels.ell import build_ell
 from graphslim_tpu_torch.kernels.segment import segment_sum
 from graphslim_tpu_torch.kernels.spmm import spmm as _spmm
 from graphslim_tpu_torch.utils import resolve_device
@@ -361,6 +363,8 @@ class Dataset:
                                                        repr=False)
     _adj_norm_host: Optional[HostAdj] = dataclasses.field(default=None,
                                                           repr=False)
+    _adj_norm_ell: Optional[object] = dataclasses.field(default=None,
+                                                        repr=False)
 
     @property
     def n_nodes(self) -> int:
@@ -387,6 +391,25 @@ class Dataset:
         if self._adj_norm is None:
             self._adj_norm = self.adj_norm_host().to_sparse(self.device)
         return self._adj_norm
+
+    def adj_norm_ell(self):
+        """Cached normalized adjacency in the degree-bucketed ELL layout
+        (:mod:`graphslim_tpu_torch.kernels.ell`, GAT's edge softmax), built
+        from the host mirror on the dataset's device.  A part's gather
+        holds about 4.8 GB of float32 rows at the sizing width
+        ``max(d, 256)`` (the evaluator's hidden width, aggregated on the
+        same layout): ``max_slots = max(4.8e9 / (4·max(d, 256)),
+        2,000,000)``, the JAX package's rule."""
+        if self._adj_norm_ell is None:
+            t0 = time.perf_counter()
+            h = self.adj_norm_host()
+            d = max(self.n_feat, 256)
+            max_slots = max(int(4.8e9 / (d * 4)), 2_000_000)
+            ell = build_ell(h.indptr, h.col, h.val, max_slots=max_slots,
+                            device=self.device)
+            ell.build_seconds = time.perf_counter() - t0
+            self._adj_norm_ell = ell
+        return self._adj_norm_ell
 
     def set_view(self, split: str, feat: torch.Tensor,
                  labels: torch.Tensor, host: HostAdj) -> None:

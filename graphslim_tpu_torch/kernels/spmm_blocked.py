@@ -256,7 +256,9 @@ def _check(layout: BlockedCOO, x: torch.Tensor) -> None:
     if x.dtype == torch.bfloat16:
         raise NotImplementedError(
             "the blocked SpMM kernel takes float32; bf16 storage of x "
-            "comes with the ELL layout (ROADMAP.md, queue 1, item 12)")
+            "goes only to the ELL product (kernels/ell.spmm_ell) and GAT's "
+            "messages, never to the blocked layout, as in the JAX package "
+            "(ROADMAP.md §3)")
     if x.dtype != torch.float32:
         raise ValueError(f"x must be float32, got {x.dtype}")
     if x.ndim != 2 or x.shape[0] != layout.n_rows:

@@ -1,24 +1,34 @@
-"""Model zoo registry (the models of this slice: SGC and GCN)."""
+"""Model zoo registry (counterpart of ``graphslim_tpu/models/__init__.py``:
+the same ten names, ``ChebNet`` and ``SAGE`` aliases)."""
 
 from graphslim_tpu_torch.models.base import (
     GNNModel, ModelConfig, aggregate, aggregate_block, is_skeleton_batch,
     layer_aggregate,
 )
-from graphslim_tpu_torch.models.zoo import GCN, SGC
+from graphslim_tpu_torch.models.gat import GAT
+from graphslim_tpu_torch.models.sgformer import SGFormer
+from graphslim_tpu_torch.models.zoo import (
+    APPNP, GCN, MLP, SGC, Cheby, GraphSage,
+)
 from graphslim_tpu_torch.models.trainer import (
-    TrainConfig, fit_with_val, evaluate,
+    TrainConfig, evaluate, fit_multi_seed, fit_with_val, prepare_adj,
 )
 
-MODEL_REGISTRY = {"GCN": GCN, "SGC": SGC}
-_NOT_PORTED = {"MLP", "APPNP", "Cheby", "ChebNet", "GraphSage", "SAGE",
-               "GAT", "SGFormer"}
+MODEL_REGISTRY = {
+    "MLP": MLP,
+    "GCN": GCN,
+    "SGC": SGC,
+    "APPNP": APPNP,
+    "Cheby": Cheby,
+    "ChebNet": Cheby,
+    "GraphSage": GraphSage,
+    "SAGE": GraphSage,
+    "GAT": GAT,
+    "SGFormer": SGFormer,
+}
 
 
 def get_model(name: str, cfg: ModelConfig) -> GNNModel:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP.md, queue 1, "
-            "item 12)")
     if name not in MODEL_REGISTRY:
         raise ValueError(
             f"Unknown model {name!r}; available: {sorted(MODEL_REGISTRY)}")

@@ -4,6 +4,8 @@ Counterpart of ``graphslim_tpu/models/base.py``.  ``aggregate`` takes:
 
 * :class:`graphslim_tpu_torch.graph.SparseAdj` — its ``matmul``, the SpMM
   dispatch (on the card: the blocked SpMM kernel);
+* :class:`graphslim_tpu_torch.kernels.ell.EllAdj` — the degree-bucketed
+  ELL product (GAT's layout; plain tensor ops);
 * a dense ``[n, n]`` tensor — matmul (synthetic condensed graphs; ``x``
   may carry a leading batch axis);
 * a dense batch ``[B, n, n]`` (MSGC's skeletons) — the batched matmul;
@@ -22,6 +24,7 @@ from typing import Any, Optional
 import torch
 
 from graphslim_tpu_torch import graph as G
+from graphslim_tpu_torch.kernels.ell import EllAdj
 from graphslim_tpu_torch.kernels.sample import BlockSample
 
 
@@ -35,7 +38,7 @@ def aggregate(adj: Any, x: torch.Tensor) -> torch.Tensor:
     """One propagation step A @ x for any supported adjacency form."""
     if adj is None:
         return x
-    if isinstance(adj, G.SparseAdj):
+    if isinstance(adj, (G.SparseAdj, EllAdj)):
         return adj.matmul(x)
     if is_skeleton_batch(adj) and x.ndim == 4:
         return _skeleton_matmul(adj, x)
@@ -89,11 +92,15 @@ class ModelConfig:
     ntrans: int = 1
     with_bn: bool = False
     activation: str = "relu"
+    nheads: int = 8             # GAT
+    trans_layers: int = 2       # SGFormer's transformer depth
+    multi_label: bool = False   # sigmoid scores in place of log-softmax
 
 
 class GNNModel:
     """Base: subclasses define ``init`` and ``_forward``; ``apply``
-    returns log-probabilities over the last axis."""
+    returns log-probabilities over the last axis, or sigmoid scores when
+    ``multi_label``."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -112,7 +119,15 @@ class GNNModel:
         out = self._forward(params, x, adj, training=training, gen=gen)
         if is_skeleton_batch(adj):
             out = out.flatten(-3, -2)
+        if self.cfg.multi_label:
+            return torch.sigmoid(out)
         return torch.log_softmax(out, dim=-1)
+
+    def embed(self, params: dict, x: torch.Tensor, adj: Any
+              ) -> torch.Tensor:
+        """Pre-softmax output, rows flattened to ``[-1, nclass]``."""
+        out = self._forward(params, x, adj, training=False, gen=None)
+        return out.reshape(-1, out.shape[-1])
 
     def n_layer_features(self) -> int:
         """How many activations :meth:`layer_features` returns."""

@@ -14,9 +14,12 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 
 def glorot_uniform(gen: torch.Generator, shape: tuple) -> torch.Tensor:
+    """U(-l, l), l = sqrt(6 / (shape[0] + shape[-1])), for any rank (GAT's
+    ``(2, nheads, h)`` attention vectors take fan-in 2, fan-out h)."""
     fan_in, fan_out = shape[0], shape[-1]
     limit = math.sqrt(6.0 / (fan_in + fan_out))
     u = torch.rand(shape, generator=gen, device=gen.device)
@@ -68,3 +71,15 @@ def dropout(gen: Optional[torch.Generator], x: torch.Tensor, rate: float,
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+ACTIVATIONS = {
+    "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "linear": lambda x: x,
+    "softplus": F.softplus,
+    "leakyrelu": lambda x: F.leaky_relu(x, 0.01),
+    "relu6": F.relu6,
+    "elu": F.elu,
+}

@@ -6,7 +6,10 @@ is a Python loop, and the best-by-validation selection stays on the device
 there: Adam with coupled weight decay, lr ×0.1 from the halfway epoch when
 lr > 1e-3, best weights by validation metric, and the loss chosen as there:
 the soft-label cross entropy when ``loss == "soft"`` or the labels are 2-D
-(GCSNTK's and GEOM's soft labels), NLL otherwise.
+(GCSNTK's and GEOM's soft labels), else ``mse`` (on the log-softmax
+output, as the reference does), ``bce`` (the first output column as a
+logit) or NLL.  ``fit_multi_seed`` runs the seeds one after another (the
+JAX package vmaps them).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from typing import Any, Optional
 
 import torch
 
+from graphslim_tpu_torch import graph as G
 from graphslim_tpu_torch import utils
 from graphslim_tpu_torch.models.base import GNNModel
 
@@ -26,17 +30,29 @@ class TrainConfig:
     lr: float = 0.01
     weight_decay: float = 5e-4
     metric: str = "accuracy"
-    loss: str = "nll"   # 'nll' | 'soft'
+    loss: str = "nll"   # 'nll' | 'soft' | 'mse' | 'bce'
+
+
+def prepare_adj(adj: Any) -> Any:
+    """GCN-normalize any adjacency form (None stays the identity)."""
+    if adj is None:
+        return None
+    if isinstance(adj, G.SparseAdj):
+        return G.gcn_norm(adj)
+    return G.normalize_adj_dense(adj)
 
 
 def _loss(cfg: TrainConfig, log_probs: torch.Tensor,
           y: torch.Tensor) -> torch.Tensor:
     if cfg.loss == "soft" or y.ndim == 2:
         return utils.soft_ce_loss(log_probs, y)
-    if cfg.loss in ("mse", "bce"):
-        raise NotImplementedError(
-            f"the {cfg.loss!r} loss is not ported yet (ROADMAP.md, queue 1, "
-            "item 12)")
+    if cfg.loss == "mse":
+        return torch.mean((log_probs - y) ** 2)
+    if cfg.loss == "bce":
+        logit = log_probs[..., 0] if log_probs.ndim == 2 else log_probs
+        yf = y.to(logit.dtype)
+        return torch.mean(torch.clamp(logit, min=0) - logit * yf
+                          + torch.log1p(torch.exp(-logit.abs())))
     return utils.nll_loss(log_probs, y)
 
 
@@ -69,7 +85,11 @@ def fit_with_val(model: GNNModel, gen: torch.Generator, *, train: tuple,
         with torch.enable_grad():
             out = model.apply(params, tx, tadj, training=True, gen=gen)
             loss = _loss(cfg, _select_rows(out, tidx), ty)
-            grads = torch.autograd.grad(loss, leaves)
+            # a leaf the forward never reads (SGFormer's ``g_bn``) takes
+            # a zero gradient, as under jax.grad
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for g, p in zip(grads, leaves)]
         opt.step(leaves, grads, state, lr=lr_t)
         with torch.no_grad():
             val_out = _select_rows(model.apply(params, vx, vadj), vidx)
@@ -80,6 +100,19 @@ def fit_with_val(model: GNNModel, gen: torch.Generator, *, train: tuple,
                 b.copy_(torch.where(better, p, b))
         losses.append(loss.detach())
     return best_params, best_acc, torch.stack(losses)
+
+
+def fit_multi_seed(model: GNNModel, gens: list, *, train: tuple,
+                   val: tuple, cfg: TrainConfig):
+    """One :func:`fit_with_val` per generator (initial parameters drawn
+    from it), one after another → (params stacked on a leading seed axis,
+    best validation metrics ``[S]``, losses ``[S, epochs]``)."""
+    runs = [fit_with_val(model, g, train=train, val=val, cfg=cfg)
+            for g in gens]
+    params = utils.tree_map(lambda *ps: torch.stack(ps),
+                            *[r[0] for r in runs])
+    return (params, torch.stack([r[1] for r in runs]),
+            torch.stack([r[2] for r in runs]))
 
 
 @torch.no_grad()

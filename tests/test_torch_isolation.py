@@ -138,14 +138,13 @@ def test_cli_rejects_options_nothing_reads(flag, tmp_path):
 
 
 def test_unported_names_raise_with_their_roadmap_item():
-    from graphslim_tpu_torch import models as M
     from graphslim_tpu_torch.eval import Evaluator
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.get_model("GAT", M.ModelConfig(nfeat=4, nhid=4, nclass=2))
     evaluator = Evaluator(None, None)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        evaluator._train_tuple(None, "GAT")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        evaluator.tsne_vis(None, "tsne.png")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        evaluator.nas_evaluate(None, None)
 
 
 def _jax_reducer_names():
