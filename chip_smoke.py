@@ -158,15 +158,39 @@ line of output each, any failed check raises (non-zero exit):
    blocked SpMM at every (graph, width) the phase launched
    (``ZOO_HELD``: the arxiv Â at 40, 128, 129, 256; flickr's selected
    subgraph and its val and test subgraphs at 500, 501, 7, 256) against
-   its plain version and float64, bit for bit on a repeat.
+   its plain version and float64, bit for bit on a repeat;
+15. the attacks, dataset files and the large loader: (a) PRBCD
+   (``attack``, metattack) on the cora twin at ptb_r 0.25 and (b) on the
+   arxiv twin at 0.05, at the JAX defaults (block 250,000, 120 epochs, 30
+   fine-tune, surrogate hidden 64, report GCN hidden 256), each with the
+   seconds of its surrogate, epochs and final draws, its budget met (the
+   pairs flipped counted from the edge sets) and its attacked GCN
+   accuracy below the clean one; (b) also holds the split PRBCD forward
+   and its gradient with respect to ``p`` against the plain gather and
+   segment-sum version at one block of 250,000 pairs, both against
+   float64, and times an epoch's parts and one host resampling; (c)
+   ``random_adj`` and ``random_feat`` on arxiv, their caches read back
+   equal; (d) GCond (3 epochs, SGC) and kcenter (GCN) on the attacked
+   arxiv twin through ``train_all.run``, which must read the attacked
+   graph (``adj_norm()`` with the attacked entry count), their triples
+   read back by ``run_eval --attack`` from ``corrupt_graph/metattack/``;
+   (e) the ``saint-small`` and ``raw-ogb`` fixtures through
+   ``load(data_dir=)`` on the card, kcenter / GCN on the first, and
+   ``LargeDataLoader`` on arxiv's train rows (batch 3000, 2 GCF hops),
+   its hops and k-means timed; then the blocked SpMM against its plain
+   version and float64 on the raw adjacencies PRBCD multiplies (cora at
+   d = 64, 7; arxiv at 64, 40), the attacked arxiv Â at the widths (d)
+   launched and the train subgraph's Â at 128.  Launches by kernel,
+   each run's counted from 0, and peak memory.
 
 Phases 6 and 7 run before phase 4.  The line before the last is the
-``kernels`` JSON (launches: phases 4, 8, 9, 10, 11, 12, 13 and 14); the
-last line is ``{"ok": true, "device": {...}}``.  ``--only kernels`` stops
-after the kernel comparisons (phases 2, 3, 6, 7); ``--only condense`` runs
-phase 9 alone (after the build), ``--only cluster`` phase 10, ``--only
-distill`` phase 11, ``--only ind`` phase 12, ``--only coarsen`` phase 13
-and ``--only zoo`` phase 14, and none of them prints a result.
+``kernels`` JSON (launches: phases 4, 8, 9, 10, 11, 12, 13, 14 and 15);
+the last line is ``{"ok": true, "device": {...}}``.  ``--only kernels``
+stops after the kernel comparisons (phases 2, 3, 6, 7); ``--only
+condense`` runs phase 9 alone (after the build), ``--only cluster`` phase
+10, ``--only distill`` phase 11, ``--only ind`` phase 12, ``--only
+coarsen`` phase 13, ``--only zoo`` phase 14 and ``--only attack`` phase
+15, and none of them prints a result.
 Without a CUDA card, or outside a checkout, it exits non-zero and prints
 no result.
 """
@@ -2503,9 +2527,10 @@ def compare_spmm_reduced(SB, G, tag: str, raw, widths, stats: dict,
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
             bound_by=by, library_ms=lib)
         del x
-    log(f"spmm on the {tag} Â: {n} rows, {nnz} stored entries "
-        f"({nnz - n} off the diagonal, {nnz / max(n, 1):.1f} a row), layout "
-        f"{layout.describe()}; device "
+    diag = int((adj.row == adj.col).sum())
+    log(f"spmm on the {tag}: {n} rows, {nnz} stored entries "
+        f"({nnz - diag} off the diagonal, {nnz / max(n, 1):.1f} a row), "
+        f"layout {layout.describe()}; device "
         f"time of launches queued back to back; " + "; ".join(parts))
     if bad:
         fail(f"blocked SpMM disagrees on the {tag} Â:\n  "
@@ -2676,8 +2701,8 @@ def run_coarsen(SB, G, arxiv, tmp: str, stats: dict) -> dict:
         fail(f"phase 13: no graph of {HELD} or no pubmed coarse graph to "
              f"hold the blocked SpMM on")
     for (name, method, _), graph in zip(HELD, held):
-        compare_spmm_reduced(SB, G, f"{name} {method}", *graph, stats)
-    compare_spmm_reduced(SB, G, f"pubmed {coarse_c[0]}", *coarse_c[1:],
+        compare_spmm_reduced(SB, G, f"{name} {method} Â", *graph, stats)
+    compare_spmm_reduced(SB, G, f"pubmed {coarse_c[0]} Â", *coarse_c[1:],
                          stats)
     del twins, held, coarse_c
     torch.cuda.empty_cache()
@@ -3031,12 +3056,12 @@ def run_zoo(SB, SG, G, ds, tmp: str, stats: dict) -> dict:
     if not launched <= held:
         fail(f"phase 14 launched the SpMM at widths {sorted(launched)}, "
              f"held at {sorted(held)}")
-    compare_spmm_reduced(SB, G, "arxiv", ds.adj_norm(), ZOO_HELD["arxiv"],
+    compare_spmm_reduced(SB, G, "arxiv Â", ds.adj_norm(), ZOO_HELD["arxiv"],
                          stats, normalized=True)
-    compare_spmm_reduced(SB, G, "flickr random", red.adj,
+    compare_spmm_reduced(SB, G, "flickr random Â", red.adj,
                          ZOO_HELD["flickr"], stats)
     for split in ("val", "test"):
-        compare_spmm_reduced(SB, G, f"flickr {split}",
+        compare_spmm_reduced(SB, G, f"flickr {split} Â",
                              flickr.view_norm(split), ZOO_HELD["flickr"],
                              stats, normalized=True)
     del flickr, red
@@ -3047,10 +3072,411 @@ def run_zoo(SB, SG, G, ds, tmp: str, stats: dict) -> dict:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the attacks, dataset files and the large loader
+# ---------------------------------------------------------------------------
+
+# PRBCD at the JAX defaults (block 250,000, 120 epochs, 30 fine-tune): the
+# cora twin at ptb_r 0.25 (budget 2,293 of its 18,344 entries) and the
+# arxiv twin at 0.05 (budget 110,981 < the block, so the projection binds)
+PRBCD_TWINS = (("cora", 0.25), ("ogbn-arxiv", 0.05))
+# the blocked SpMM on the raw adjacency PRBCD's base product runs over, at
+# the surrogate's widths (hidden 64, then the class count)
+PRBCD_HELD = {"cora": (64, 7), "ogbn-arxiv": (64, 40)}
+HELD_BLOCK = 250_000     # the block of the split-forward check on arxiv
+
+
+class AttackRecords:
+    """Collects what the port logs in a run: PRBCD's statistics (the
+    record's ``prbcd``) and the attacked GCN accuracies."""
+
+    def __init__(self):
+        import logging
+
+        self.prbcd: list = []
+        self.acc: list = []
+        records = self
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                if hasattr(record, "prbcd"):
+                    records.prbcd.append(record.prbcd)
+                if str(record.msg).startswith("attacked GCN accuracy"):
+                    records.acc.append(float(record.args[-1]))
+        self.logger = logging.getLogger("graphslim_tpu_torch")
+        self.handler = Handler(level=logging.INFO)
+
+    def __enter__(self):
+        import logging
+
+        self.level = self.logger.level
+        self.handlers = list(self.logger.handlers)
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        # run_eval's get_args adds a file handler under its save_path
+        for h in self.logger.handlers[:]:
+            if h not in self.handlers:
+                self.logger.removeHandler(h)
+                h.close()
+        self.logger.setLevel(self.level)
+
+
+def counted(K, SB, SG, totals: dict, fn):
+    """``fn()`` with every kernel's count set to 0 just before and read
+    just after (added to ``totals``) → (result, seconds, launches,
+    SpMM launches by width)."""
+    import torch
+
+    for mod in (K, SB, SG):
+        mod.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {"pge_fwd": K.LAUNCHES["pge_fwd_ws"]
+                + K.LAUNCHES["pge_fwd_nows"],
+                "pge_bwd": K.LAUNCHES["pge_bwd"],
+                "spmm_blocked": SB.LAUNCHES["spmm_blocked"],
+                "smem_gather": SG.LAUNCHES["smem_gather"]}
+    for k, v in launches.items():
+        totals[k] += v
+    return out, secs, launches, dict(sorted(SB.LAUNCHES_BY_WIDTH.items()))
+
+
+def edge_keys(G, adj):
+    """Canonical (min, max) keys of an adjacency's undirected pairs."""
+    import numpy as np
+
+    ei = G.to_edge_index(adj)
+    lo, hi = np.minimum(ei[0], ei[1]), np.maximum(ei[0], ei[1])
+    return np.unique(lo * adj.n_rows + hi)
+
+
+def held_prbcd_forward(G, ds, budget: int, stats: dict) -> None:
+    """(b): the split PRBCD forward and its gradient with respect to ``p``
+    against the plain gather and segment-sum version on the card at one
+    fixed block of ``HELD_BLOCK`` pairs, both against the plain version in
+    float64: |split − f64| ≤ 2·|plain f32 − f64| + 1e-6·max|f64| for the
+    log-probabilities and the gradient.  Then the times of an epoch's
+    parts (CUDA events) and of one host resampling."""
+    import numpy as np
+    import torch
+
+    from graphslim_tpu_torch import utils
+    from graphslim_tpu_torch.data import attack as A
+
+    params, labels = A.train_surrogate(ds,
+                                       utils.make_generator(0, ds.device))
+    n = ds.n_nodes
+    rng = np.random.default_rng(0)
+    keys = edge_keys(G, ds.adj)
+    rows, cols = A._triu_pairs(rng, n, HELD_BLOCK)
+    is_edge = A._is_existing_edge(keys, rows, cols, n)
+    blk = A.Block.of(rows, cols, is_edge, ds.device)
+    p = torch.as_tensor(rng.random(HELD_BLOCK).astype(np.float32) * 0.5,
+                        device=ds.device)
+    p64 = utils.tree_map(lambda t: t.double(), params)
+    blk64 = A.Block(blk.rows, blk.cols, blk.sign.double())
+
+    def grad(fn, prm, feat, q0, b):
+        with torch.enable_grad():
+            q = q0.detach().requires_grad_(True)
+            lp = fn(prm, ds.adj, feat, q, b)
+            g, = torch.autograd.grad(A.tanh_margin_loss(lp, labels), q)
+        return lp.detach(), g
+
+    lp_s, g_s = grad(A.forward_split, params, ds.feat, p, blk)
+    lp_p, g_p = grad(A.forward_plain, params, ds.feat, p, blk)
+    lp_64, g_64 = grad(A.forward_plain, p64, ds.feat.double(), p.double(),
+                       blk64)
+    bad: list = []
+    errs = {}
+    for tag, s, pl, f in (("log-probabilities", lp_s, lp_p, lp_64),
+                          ("gradient", g_s, g_p, g_64)):
+        e_s = max_err(s.double(), f)
+        e_p = max_err(pl.double(), f)
+        lim = 2 * e_p + 1e-6 * float(f.abs().max())
+        errs[tag] = (max_err(s, pl), e_s, e_p, float(f.abs().max()))
+        if not e_s <= lim:
+            bad.append(f"split PRBCD {tag}: |split - f64| {e_s:.3e} > "
+                       f"{lim:.3e}")
+    del lp_64, g_64, p64, blk64
+    torch.cuda.empty_cache()
+    if bad:
+        fail("phase 15 (b): " + "; ".join(bad))
+    ms = {
+        "split fwd+bwd": median_ms(
+            lambda: grad(A.forward_split, params, ds.feat, p, blk), 10),
+        "plain fwd+bwd": median_ms(
+            lambda: grad(A.forward_plain, params, ds.feat, p, blk), 5),
+        "projection": median_ms(lambda: A.project(p, budget, 1e-7), 10),
+        "epoch_step": median_ms(lambda: A.epoch_step(
+            params, ds.adj, ds.feat, labels, p, blk, budget, 0.2, 1e-7),
+            10),
+    }
+    p_np = p.cpu().numpy()
+    t0 = time.perf_counter()
+    keep = np.argsort(-p_np)[:HELD_BLOCK // 2]
+    keep = keep[p_np[keep] > 1e-7]
+    r2, c2 = A._triu_pairs(rng, n, HELD_BLOCK - keep.shape[0])
+    e2 = A._is_existing_edge(keys, r2, c2, n)
+    A.Block.of(np.concatenate([rows[keep], r2]),
+               np.concatenate([cols[keep], c2]),
+               np.concatenate([is_edge[keep], e2]), ds.device)
+    torch.as_tensor(np.concatenate([p_np[keep], np.full(
+        r2.shape[0], 1e-7, dtype=np.float32)]), device=ds.device)
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    stats["prbcd_epoch"] = dict(ms, host_resample=host_ms)
+    log("phase 15 (b) split PRBCD forward on the arxiv twin at one block of "
+        f"{HELD_BLOCK} pairs ({int(is_edge.sum())} existing edges): "
+        + "; ".join(f"{t}: |split - plain| {a:.3e}, |split - f64| {b:.3e}, "
+                    f"|plain - f64| {c:.3e} (max|f64| {m:.3e})"
+                    for t, (a, b, c, m) in errs.items())
+        + "; device ms (CUDA events, median): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+        + f"; one host resampling {host_ms:.1f} ms")
+
+
+def run_attack(K, SB, SG, G, arxiv, tmp: str, stats: dict) -> dict:
+    """Phase 15: (a) PRBCD on the cora twin at ptb_r 0.25 and (b) on the
+    arxiv twin at 0.05 through ``attack`` (budget met, attacked GCN
+    accuracy below the clean one; (b) also holds the split forward,
+    ``held_prbcd_forward``); (c) ``random_adj`` and ``random_feat`` on
+    arxiv (their caches read back equal); (d) GCond (3 epochs, SGC) and
+    kcenter (GCN) on the attacked arxiv twin through ``train_all.run``,
+    their triples read back by ``run_eval --attack``; (e) the
+    ``saint-small`` and ``raw-ogb`` fixtures through ``load(data_dir=)``,
+    kcenter on one, and ``LargeDataLoader`` on arxiv's train rows; then
+    the blocked SpMM at the phase's new (graph, width) pairs.  Every run's
+    launches are counted from 0; returns the phase's."""
+    import numpy as np
+    import torch
+
+    from graphslim_tpu_torch import run_eval
+    from graphslim_tpu_torch import train_all as TA
+    from graphslim_tpu_torch.config import Args, finalize
+    from graphslim_tpu_torch.data import attack as A
+    from graphslim_tpu_torch.data import load
+    from graphslim_tpu_torch.data.largeloader import LargeDataLoader
+    from graphslim_tpu_torch.eval import Evaluator
+    from graphslim_tpu_torch.reduce import create_reducer
+
+    t_phase = time.perf_counter()
+    totals = {"pge_fwd": 0, "pge_bwd": 0, "spmm_blocked": 0,
+              "smem_gather": 0}
+    torch.cuda.reset_peak_memory_stats()
+    twins = {"ogbn-arxiv": arxiv}
+    held_raw = {}
+
+    # --- (a), (b): PRBCD ---------------------------------------------------
+    attacked = {}
+    for name, ptb in PRBCD_TWINS:
+        if name not in twins:
+            twins[name] = load(name, seed=0, device="cuda")
+        ds = twins[name]
+        args = finalize(Args(dataset=name, method="kcenter", seed=0,
+                             attack="metattack", ptb_r=ptb, device="cuda",
+                             save_path=os.path.join(tmp, "attack")))
+        budget = int(ptb * ds.adj.nnz / 2)
+        clean_acc = A._report_attacked_acc(ds, args)
+        with AttackRecords() as rec:
+            out, secs, launches, widths = counted(
+                K, SB, SG, totals, lambda: A.attack(ds, args))
+        st, acc = rec.prbcd[-1], rec.acc[-1]
+        flips = np.setxor1d(edge_keys(G, ds.adj), edge_keys(G, out.adj))
+        if not (st["budget"] == budget and 0 < st["applied"] <= budget
+                and 0 < flips.shape[0] <= budget):
+            fail(f"phase 15: PRBCD on {name}: budget {budget}, applied "
+                 f"{st['applied']}, {flips.shape[0]} pairs flipped")
+        if not acc < clean_acc:
+            fail(f"phase 15: PRBCD on {name}: attacked GCN accuracy {acc:.4f}"
+                 f" not below the clean {clean_acc:.4f}")
+        attacked[name] = out
+        tag = "(a)" if name == "cora" else "(b)"
+        log(f"phase 15 {tag} PRBCD on the {name} twin at ptb_r {ptb}: "
+            f"{ds.n_nodes} nodes, {ds.adj.nnz} entries, budget {budget}, "
+            f"block {st['block']}; applied {st['applied']} (add "
+            f"{st['add']}, remove {st['remove']}; {flips.shape[0]} pairs "
+            f"flipped), best val loss {st['best_val_loss']:.4f}; seconds: "
+            f"surrogate {st['surrogate_s']:.2f}, {st['epochs']} epochs "
+            f"{st['epochs_s']:.2f} ({1e3 * st['epochs_s'] / st['epochs']:.1f}"
+            f" ms an epoch with its host resampling), final draws "
+            f"{st['final_s']:.2f}, attack() {secs:.2f} with the report GCN; "
+            f"GCN accuracy clean {clean_acc:.4f}, attacked {acc:.4f}; "
+            f"launches {launches}, SpMM by width {widths}")
+        held_raw[name] = ds.adj
+        if name == "ogbn-arxiv":
+            held_prbcd_forward(G, ds, budget, stats)
+
+    # --- (c): random_adj and random_feat on arxiv ------------------------
+    for kind in ("random_adj", "random_feat"):
+        args = finalize(Args(dataset="ogbn-arxiv", method="kcenter", seed=0,
+                             attack=kind, device="cuda",
+                             save_path=os.path.join(tmp, "attack")))
+        with AttackRecords() as rec:
+            out, secs, launches, _ = counted(
+                K, SB, SG, totals, lambda: A.attack(arxiv, args))
+        path = A._cache_path(args, arxiv)
+        with np.load(path) as blob:
+            back = G.host_from_edge_index(blob["edge_index"], arxiv.n_nodes)
+            feat_ok = "feat" not in blob or np.array_equal(
+                blob["feat"], out.feat.cpu().numpy())
+        host = G.host_of(out.adj)
+        if not (np.array_equal(back.row, host.row)
+                and np.array_equal(back.col, host.col) and feat_ok):
+            fail(f"phase 15 (c): the {kind} cache does not read back equal")
+        log(f"phase 15 (c) {kind} on arxiv at ptb_r {args.ptb_r}: attack() "
+            f"{secs:.2f} s with the report GCN (accuracy {rec.acc[-1]:.4f}),"
+            f" {out.adj.nnz} entries, cache {os.path.getsize(path)} bytes "
+            f"read back equal; launches {launches}")
+        del out
+
+    # --- (d): reducers on the attacked arxiv twin through train_all.run --
+    ptb = dict(PRBCD_TWINS)["ogbn-arxiv"]
+    seen: dict = {}
+    real_load, create = TA.load, TA.create_reducer
+    options = dict(setting="trans", split="fixed", seed=0, data_dir=None,
+                   pre_norm=True, device="cuda")
+
+    def load_twin(name, **kw):
+        if name != "ogbn-arxiv" or kw != options:
+            fail(f"phase 15 (d): load({name!r}, {kw})")
+        return arxiv
+
+    def create_seen(method, data, args, **kw):
+        seen["data"] = data
+        return create(method, data, args, **kw)
+
+    runs = (("gcond", "SGC", dict(epochs=3, init="random",
+                                  run_inter_eval=1)),
+            ("kcenter", "GCN", {}))
+    # the attacked twin's normalization, as gcn_norm builds it
+    want_norm = G.gcn_norm(attacked["ogbn-arxiv"].adj).nnz
+    TA.load, TA.create_reducer, run_eval.load = load_twin, create_seen, \
+        load_twin
+    try:
+        for method, model, kw in runs:
+            base = dict(dataset="ogbn-arxiv", method=method, seed=0,
+                        attack="metattack", ptb_r=ptb, eval_model=model,
+                        run_eval=1, device="cuda",
+                        save_path=os.path.join(tmp, "attack"), **kw)
+            args = finalize(Args(**base), explicit=set(base))
+            if method == "gcond":
+                args = args.replace(checkpoints=(1,))
+            with AttackRecords():
+                (mean, std), secs, launches, widths = counted(
+                    K, SB, SG, totals, lambda: TA.run(args))
+            data = seen["data"]
+            if not (data.adj.nnz == attacked["ogbn-arxiv"].adj.nnz
+                    and data.adj_norm().nnz == want_norm
+                    != arxiv.adj_norm().nnz):
+                fail(f"phase 15 (d) {method}: the reducer did not read the "
+                     f"attacked graph ({data.adj.nnz} entries, adj_norm() "
+                     f"{data.adj_norm().nnz})")
+            triple = os.path.join(tmp, "attack", "corrupt_graph",
+                                  "metattack", "reduced_graph", method,
+                                  f"ogbn-arxiv_{args.reduction_rate}_0.npz")
+            argv = ["-D", "ogbn-arxiv", "-M", method, "-S", "0", "-A",
+                    "metattack", "-P", str(ptb), "--save_path",
+                    os.path.join(tmp, "attack"), "--run_eval", "1",
+                    "--eval_model", model]
+            with AttackRecords():
+                (rmean, _), rsecs, rlaunches, _ = counted(
+                    K, SB, SG, totals, lambda: run_eval.main(argv))
+            if not (os.path.exists(triple) and math.isfinite(mean)
+                    and math.isfinite(rmean)):
+                fail(f"phase 15 (d) {method}: triple {triple} "
+                     f"{os.path.exists(triple)}, scores {mean}, {rmean}")
+            seen["widths"] = seen.get("widths", set()) | set(widths)
+            log(f"phase 15 (d) {method} / {model} on the attacked arxiv twin "
+                f"(train_all.run, the cached attack read back; adj_norm() "
+                f"{data.adj_norm().nnz} entries against the clean "
+                f"{arxiv.adj_norm().nnz}): {secs:.2f} s, {mean:.4f} ± "
+                f"{std:.4f}, launches {launches}, SpMM by width {widths}; "
+                f"run_eval --attack read {os.path.relpath(triple, tmp)}: "
+                f"{rmean:.4f} on the clean twin, {rsecs:.2f} s, launches "
+                f"{rlaunches}")
+    finally:
+        TA.load, TA.create_reducer, run_eval.load = real_load, create, \
+            real_load
+    att = seen.pop("data")
+
+    # --- (e): dataset files and the large loader -------------------------
+    fixtures = os.path.join(HERE, "tests", "fixtures")
+    for name, sub in (("synth-small", "saint-small"),
+                      ("ogbn-products", "raw-ogb")):
+        t0 = time.perf_counter()
+        fds = load(name, seed=0, data_dir=os.path.join(fixtures, sub),
+                   device="cuda")
+        log(f"phase 15 (e) {sub}: load(data_dir=) {name}: {fds.n_nodes} "
+            f"nodes, {fds.adj.nnz} entries, {fds.nclass} classes, train "
+            f"{len(fds.idx_train)}, {time.perf_counter() - t0:.2f} s")
+        if name == "synth-small":
+            kargs = finalize(Args(dataset=name, method="kcenter", seed=0,
+                                  run_eval=1, device="cuda",
+                                  save_path=os.path.join(tmp, "files")),
+                             explicit={"run_eval"})
+
+            def reduce_eval():
+                red = create_reducer("kcenter", fds, kargs).reduce(fds)
+                return red, Evaluator(fds, kargs).evaluate(red, "GCN")[0]
+            (red, (mean, _)), secs, launches, _ = counted(
+                K, SB, SG, totals, reduce_eval)
+            if not (red.n_syn > 0 and mean > 0.5):
+                fail(f"phase 15 (e): kcenter on {sub}: n_syn {red.n_syn}, "
+                     f"GCN {mean}")
+            log(f"phase 15 (e) kcenter / GCN on {sub}: n_syn {red.n_syn}, "
+                f"{mean:.4f}, {secs:.2f} s, launches {launches}")
+    loaders = {}
+    for split_method in ("mod", "kmeans"):
+        loaders[split_method], secs, launches, widths = counted(
+            K, SB, SG, totals, lambda: LargeDataLoader(
+                arxiv, batch_size=3000, split_method=split_method,
+                gcf_hops=2))
+        loaders[split_method + " s"] = secs
+        if widths != {arxiv.n_feat: 2}:
+            fail(f"phase 15 (e): the GCF hops launched {widths}")
+    big = loaders["kmeans"]
+    sizes = [b.size for b in big.batches]
+    x, y, a = big.get_batch(0)
+    if not (big.n_batch > 1 and torch.isfinite(big.feat).all()
+            and a.shape == (x.shape[0],) * 2):
+        fail(f"phase 15 (e): LargeDataLoader {big.n_batch} batches")
+    log(f"phase 15 (e) LargeDataLoader on arxiv's {big.feat.shape[0]} train "
+        f"rows (batch 3000, gcf_hops 2): {big.n_batch} k-means batches of "
+        f"{min(sizes)}-{max(sizes)} rows; standardize + GCF hops (2 SpMM "
+        f"launches at d = {arxiv.n_feat}) {loaders['mod s']:.2f} s, with "
+        f"the k-means "
+        f"{loaders['kmeans s']:.2f} s (k-means "
+        f"{loaders['kmeans s'] - loaders['mod s']:.2f} s); get_batch(0) "
+        f"{tuple(a.shape)}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # --- the blocked SpMM at the phase's new (graph, width) pairs ---------
+    for name, adj in held_raw.items():
+        compare_spmm_reduced(SB, G, f"{name} raw A (PRBCD's base)", adj,
+                             PRBCD_HELD[name], stats, normalized=True)
+    compare_spmm_reduced(SB, G, "attacked arxiv Â", att.adj_norm(),
+                         sorted(seen["widths"]), stats, normalized=True)
+    compare_spmm_reduced(SB, G, "arxiv train subgraph's Â", big.adj,
+                         (arxiv.n_feat,), stats)
+    del big, loaders, att, attacked
+    torch.cuda.empty_cache()
+    log(f"phase 15: launches {totals}, peak {peak:.2f} GiB, "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=["kernels", "condense", "cluster",
-                                       "distill", "ind", "coarsen", "zoo"],
+                                       "distill", "ind", "coarsen", "zoo",
+                                       "attack"],
                     default=None)
     opts = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "graphslim_tpu_torch")):
@@ -3100,9 +3526,12 @@ def main() -> None:
     ds = load("ogbn-arxiv", seed=0, device="cuda")
     log(f"load ogbn-arxiv twin: {ds.n_nodes} nodes, {ds.adj.nnz} edges, "
         f"{time.perf_counter() - t0:.1f} s")
-    if opts.only in ("condense", "cluster", "distill", "coarsen", "zoo"):
+    if opts.only in ("condense", "cluster", "distill", "coarsen", "zoo",
+                     "attack"):
         with tempfile.TemporaryDirectory() as tmp:
-            if opts.only == "zoo":
+            if opts.only == "attack":
+                run_attack(K, SB, SG, G, ds, tmp, {})
+            elif opts.only == "zoo":
                 run_zoo(SB, SG, G, ds, tmp, {})
             elif opts.only == "coarsen":
                 run_coarsen(SB, G, ds, tmp, {})
@@ -3195,6 +3624,11 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         zoo = run_zoo(SB, SG, G, ds, tmp, stats)
 
+    # --- phase 15 --------------------------------------------------------
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        atk = run_attack(K, SB, SG, G, ds, tmp, stats)
+
     src = "graphslim_tpu_torch/csrc/"
     kernels = [
         # ms: the launch kind that keeps the workspace (syn_adj_norm);
@@ -3202,12 +3636,12 @@ def main() -> None:
         dict(name="pge_fwd", route="cuda", source=src + "pge_kernels.cuh",
              replaces="graphslim_tpu/kernels/pallas_pge.py:74",
              launches=launches["pge_fwd"] + cond["pge_fwd"]
-             + dist["pge_fwd"] + ind["pge_fwd"],
+             + dist["pge_fwd"] + ind["pge_fwd"] + atk["pge_fwd"],
              library_ms=None, **stats["pge_fwd"]),
         dict(name="pge_bwd", route="cuda", source=src + "pge_kernels.cuh",
              replaces="graphslim_tpu/kernels/pallas_pge.py:165",
              launches=launches["pge_bwd"] + cond["pge_bwd"]
-             + dist["pge_bwd"] + ind["pge_bwd"],
+             + dist["pge_bwd"] + ind["pge_bwd"] + atk["pge_bwd"],
              library_ms=None, **stats["pge_bwd"]),
         # timed at the hidden width, where the coreset path spends most
         dict(name="spmm_blocked", route="cuda",
@@ -3216,13 +3650,14 @@ def main() -> None:
              launches=core["spmm_blocked"] + cond["spmm_blocked"]
              + clus["spmm_blocked"] + dist["spmm_blocked"]
              + ind["spmm_blocked"] + coarse["spmm_blocked"]
-             + zoo["spmm_blocked"],
+             + zoo["spmm_blocked"] + atk["spmm_blocked"],
              **stats["spmm_blocked_d256"]),
         dict(name="smem_gather", route="cuda",
              source=src + "smem_gather.cu",
              replaces="benchmark/probe_spmm.py:82",
              launches=core["smem_gather"] + dist["smem_gather"]
-             + ind["smem_gather"] + zoo["smem_gather"],
+             + ind["smem_gather"] + zoo["smem_gather"]
+             + atk["smem_gather"],
              **stats["smem_gather"]),
     ]
     for k in kernels:

@@ -26,7 +26,7 @@ log = logging.getLogger("graphslim_tpu_torch")
 class Args:
     # --- common ---------------------------------------------------------
     dataset: str = "cora"
-    method: str = "random"
+    method: str = "kcenter"
     setting: Optional[str] = None          # trans | ind (forced per dataset)
     split: str = "fixed"
     reduction_rate: float = -1.0
@@ -37,6 +37,10 @@ class Args:
     pre_norm: bool = True
     agg: bool = False
     attack: Optional[str] = None
+    ptb_r: float = 0.25
+    prbcd_epochs: int = 120                # PRBCD ascent epochs
+    prbcd_fine_tune: int = 30              # last epochs without resampling
+    prbcd_block: int = 250_000             # candidate block size
     device: str = "cuda"
     # --- reduction / condensation --------------------------------------
     epochs: int = 1000
@@ -210,7 +214,7 @@ def get_args(argv: Optional[list[str]] = None) -> Args:
     parser = argparse.ArgumentParser("graphslim-tpu-torch")
     short = {"dataset": "-D", "method": "-M", "reduction_rate": "-R",
              "seed": "-S", "epochs": "-E", "hidden": "-H",
-             "verbose": "-V", "attack": "-A"}
+             "verbose": "-V", "attack": "-A", "ptb_r": "-P"}
     for f in dataclasses.fields(Args):
         if f.name in ("metric", "checkpoints"):
             continue

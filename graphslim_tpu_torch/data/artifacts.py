@@ -2,7 +2,8 @@
 
 Counterpart of ``graphslim_tpu/data/artifacts.py``.  The ``.npz`` layout is
 the JAX package's, so artifacts written by either package read in both:
-``{save_path}/reduced_graph/{method}/{dataset}_{r}_{seed}.npz``.
+``{save_path}/reduced_graph/{method}/{dataset}_{r}_{seed}.npz``, or under
+``{save_path}/corrupt_graph/{attack}/`` for a run on an attacked graph.
 :func:`read_npz` also reads the plain ``feat``/``adj``/``labels`` layout of
 ``benchmark/artifacts/arxiv_gcond_r0.01.npz``.
 """
@@ -10,6 +11,8 @@ the JAX package's, so artifacts written by either package read in both:
 from __future__ import annotations
 
 import os
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -17,8 +20,10 @@ from graphslim_tpu_torch import graph as G
 
 
 def _triple_path(save_path: str, method: str, dataset: str, r: float,
-                 seed: int) -> str:
+                 seed: int, attack: Optional[str] = None) -> str:
     base = os.path.abspath(os.path.expanduser(save_path))
+    if attack:
+        base = os.path.join(base, "corrupt_graph", attack)
     return os.path.join(base, "reduced_graph", method,
                         f"{dataset}_{r}_{seed}.npz")
 
@@ -29,8 +34,9 @@ def _np(t) -> np.ndarray:
 
 
 def save_reduced(reduced: G.Reduced, save_path: str, method: str,
-                 dataset: str, r: float, seed: int) -> str:
-    path = _triple_path(save_path, method, dataset, r, seed)
+                 dataset: str, r: float, seed: int,
+                 attack: Optional[str] = None) -> str:
+    path = _triple_path(save_path, method, dataset, r, seed, attack)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     # labels keep their own dtype: hard labels are integers, soft labels
     # (GCSNTK's, GEOM's) float [n_syn, nclass] rows
@@ -78,10 +84,11 @@ def read_npz(path: str, device=None) -> G.Reduced:
 
 
 def load_reduced(save_path: str, method: str, dataset: str, r: float,
-                 seed: int, device=None) -> G.Reduced:
+                 seed: int, device=None,
+                 attack: Optional[str] = None) -> G.Reduced:
     """The triple that :func:`save_reduced` (of either package) wrote for
     this run, on the CUDA card unless ``device`` says otherwise."""
-    path = _triple_path(save_path, method, dataset, r, seed)
+    path = _triple_path(save_path, method, dataset, r, seed, attack)
     if not os.path.exists(path):
         raise FileNotFoundError(f"no reduced graph at {path}")
     return read_npz(path, device=device)
@@ -89,10 +96,11 @@ def load_reduced(save_path: str, method: str, dataset: str, r: float,
 
 def get_syn_data(save_path: str, method: str, dataset: str, r: float,
                  seed: int, model_type: str = "GCN", threshold: float = 0.0,
-                 device=None) -> G.Reduced:
+                 device=None, attack: Optional[str] = None) -> G.Reduced:
     """Load and sparsify for ``model_type`` (reference
     ``dataset/utils.py:261-296``)."""
-    reduced = load_reduced(save_path, method, dataset, r, seed, device)
+    reduced = load_reduced(save_path, method, dataset, r, seed, device,
+                           attack)
     return sparsify(reduced, model_type, method, threshold)
 
 

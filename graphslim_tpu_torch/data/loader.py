@@ -1,7 +1,8 @@
 """Dataset loading: specs of the twins, splits, transforms, inductive views.
 
 Counterpart of ``graphslim_tpu/data/loader.py``: the same 21 dataset
-profiles, the same host-NumPy synthesis seeded the same way, so both
+profiles, the same host-NumPy synthesis seeded the same way, and the same
+readers of dataset files (:mod:`graphslim_tpu_torch.data.ingest`), so both
 packages load equal arrays.  Karate is Zachary's graph, kept here as a
 constant (no ``networkx``).  In the inductive setting the train, val and
 test subgraphs are induced on the host from the host mirror; every array
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from graphslim_tpu_torch import graph as G
-from graphslim_tpu_torch.data import synthetic
+from graphslim_tpu_torch.data import ingest, synthetic
 from graphslim_tpu_torch.utils import resolve_device
 
 
@@ -109,8 +110,7 @@ _SPECS = [
                 "standardize", "trans", target_acc=0.76,
                 label_noise=0.15, center_scale=0.5, feature_noise=1.2,
                 locality=0.5, locality_window=0.02),
-    # Too large to synthesize: real files only (ROADMAP.md, queue 1,
-    # item 13: data/ingest.py).
+    # Too large to synthesize: real files only (``load(data_dir=...)``).
     DatasetSpec("ogbn-proteins", 132_534, 8, 2, 597.0, 0.6,
                 "standardize", "trans", synth_ok=False),
     DatasetSpec("ogbn-papers100m", 111_059_956, 128, 172, 29.1, 0.7,
@@ -217,33 +217,42 @@ def load(name: str, setting: Optional[str] = None,
          split: Optional[str] = None, seed: int = 0,
          data_dir: Optional[str] = None, pre_norm: bool = False,
          device=None) -> G.Dataset:
-    """Synthesize a twin and build its views on ``device`` (the CUDA card
-    unless the caller passes another).  With ``setting='ind'`` the
-    dataset also carries the induced train, val and test subgraphs."""
+    """Load a dataset and build its views on ``device`` (the CUDA card
+    unless the caller passes another).  Files under ``data_dir`` in any
+    format :func:`ingest.try_load` reads take precedence (``nclass`` from
+    their labels, their own split where they ship one); otherwise the
+    deterministic twin is synthesized.  With ``setting='ind'`` the dataset
+    also carries the induced train, val and test subgraphs."""
     dev = resolve_device(device)
-    if data_dir is not None:
-        raise NotImplementedError(
-            "reading dataset files is not ported yet (ROADMAP.md, queue 1,"
-            " item 13: data/ingest.py)")
     name = normalize_name(name)
     spec = DATASET_SPECS[name]
     setting = setting or spec.default_setting
     split = split or spec.split
-    if name == "karate":
+    loaded = ingest.try_load(name, data_dir) if data_dir else None
+    role = None
+    if loaded is not None:
+        edge_index, feat_np, labels_np, role = loaded
+        nclass = int(labels_np.max()) + 1
+    elif name == "karate":
         edge_index, feat_np, labels_np = _load_karate()
+        nclass = spec.nclass
     elif not spec.synth_ok:
         raise FileNotFoundError(
-            f"{name} is too large to synthesize and needs its files, which "
-            "the port cannot read yet (ROADMAP.md, queue 1, item 13: "
-            "data/ingest.py)")
+            f"{name} is ingestion-only (too large to synthesize); "
+            f"provide --load_path with {name}/adj_full.npz or "
+            f"{name}.npz")
     else:
         edge_index, feat_np, labels_np = _synth_cached(name, spec)
-    nclass = spec.nclass
+        nclass = spec.nclass
 
     n = feat_np.shape[0]
     rng = np.random.default_rng(seed)
-    idx_train, idx_val, idx_test = _make_splits(labels_np, nclass, split,
-                                                rng)
+    if role is not None:  # the split shipped with the files
+        idx_train, idx_val, idx_test = (np.sort(np.asarray(role[k]))
+                                        for k in ("tr", "va", "te"))
+    else:
+        idx_train, idx_val, idx_test = _make_splits(labels_np, nclass,
+                                                    split, rng)
     adj, adj_host = G.from_edge_index(edge_index, n, symmetrize=True,
                                       device=dev, return_host=True)
     feat_np = np.asarray(feat_np, dtype=np.float32)

@@ -237,6 +237,21 @@ def from_edge_index(edge_index: np.ndarray, n_nodes: int,
     return (adj, host) if return_host else adj
 
 
+def from_scipy(mat, device=None) -> SparseAdj:
+    """A scipy.sparse matrix as a SparseAdj (duplicates summed), on the
+    CUDA card unless ``device`` says otherwise."""
+    coo = mat.tocoo()
+    return from_edge_index(np.stack([coo.row, coo.col]), mat.shape[0],
+                           edge_weight=coo.data, device=device)
+
+
+def to_edge_index(adj: SparseAdj) -> np.ndarray:
+    """[2, E] host edge index, from the host mirror (no read-back when the
+    adjacency keeps one)."""
+    h = host_of(adj)
+    return np.stack([h.row, h.col])
+
+
 def host_submatrix(adj: HostAdj, idx: np.ndarray) -> HostAdj:
     """adj[np.ix_(idx, idx)] — induced subgraph, on the host."""
     idx = np.asarray(idx)
@@ -299,6 +314,22 @@ def normalize_adj_dense(adj: torch.Tensor, add_loops: bool = True
     dinv = torch.where(deg > 0, torch.rsqrt(torch.clamp(deg, min=1e-12)),
                        torch.zeros_like(deg))
     return adj * dinv[..., :, None] * dinv[..., None, :]
+
+
+def row_normalize(feat: torch.Tensor) -> torch.Tensor:
+    """L2 row normalization (the planetoid feature transform)."""
+    norm = torch.linalg.vector_norm(feat, dim=-1, keepdim=True)
+    return feat / torch.clamp(norm, min=1e-12)
+
+
+def standardize(feat: torch.Tensor,
+                train_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Z-score standardization fit on the rows ``train_idx`` (all rows
+    when None), with the population standard deviation."""
+    ref = feat if train_idx is None else feat[train_idx]
+    mu = ref.mean(0)
+    sd = ref.std(0, unbiased=False)
+    return (feat - mu) / torch.clamp(sd, min=1e-12)
 
 
 # ---------------------------------------------------------------------------

@@ -7,5 +7,7 @@ Kron), the clustering coarseners (Cluster, ClusterAgg, Average, VNG), the
 condensers of the GCond engine (GCond, DosCond, GCondX, DosCondX, GCDM,
 GCDMX, SGDD, MSGC), Mirage, GECC, GCSNTK, SimGC, SFGC, GEOM and GDEM."""
 
-from graphslim_tpu_torch.reduce.registry import create_reducer
+from graphslim_tpu_torch.reduce.registry import (
+    create_reducer, get_method_spec, list_methods, MethodSpec,
+)
 from graphslim_tpu_torch.reduce.base import Reducer, class_budgets

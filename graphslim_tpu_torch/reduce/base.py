@@ -86,5 +86,6 @@ class Reducer:
         if self.save_output:
             save_reduced(reduced, self.args.save_path, self.args.method,
                          data.name, self.args.reduction_rate,
-                         self.args.seed)
+                         self.args.seed,
+                         attack=getattr(self.args, "attack", None))
         return reduced

@@ -321,6 +321,7 @@ class CondensationBase(Reducer):
         if mean_val > best_val:
             best_val = mean_val
             save_reduced(reduced, args.save_path, args.method,
-                         self.data.name, args.reduction_rate, args.seed)
+                         self.data.name, args.reduction_rate, args.seed,
+                         attack=getattr(args, "attack", None))
             self._best_reduced = reduced
         return best_val

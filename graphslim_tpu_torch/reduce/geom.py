@@ -8,7 +8,7 @@ Counterpart of ``graphslim_tpu/reduce/geom.py`` (reference
   ``np.add.at``), and each expert trains for ``teacher_epochs + 1`` epochs
   on the growing prefix that :func:`training_scheduler` allows at that
   epoch (a mask over the ordered rows inside each epoch); cached as
-  ``save_path/geom_buffer/<dataset>_<attack>_0.25_<seed>.npz``.
+  ``save_path/geom_buffer/<dataset>_<attack>_<ptb_r>_<seed>.npz``.
 * **The alignment.**  Starts are drawn from a window that widens with the
   step, ``[min_start_epoch, min(max_start_epoch_s + it,
   max_start_epoch))``; the target is the fixed ``expert_epochs // 10``

@@ -6,9 +6,7 @@ Counterpart of ``graphslim_tpu/reduce/sfgc.py`` (reference
 * **Stage 1, the expert buffer.**  ``num_experts`` GCNs train on the full
   graph for ``teacher_epochs`` epochs each; the flat parameters at the
   start and after every 10th epoch form one ``[E, S, P]`` array, cached as
-  ``save_path/sfgc_buffer/<dataset>_<attack>_0.25_<seed>.npz`` (0.25 is
-  the JAX package's default attack rate ``ptb_r``, which the port gets
-  with the attacks, ROADMAP item 13).  The
+  ``save_path/sfgc_buffer/<dataset>_<attack>_<ptb_r>_<seed>.npz``.  The
   flat layout is ``ravel_pytree``'s (:mod:`graphslim_tpu_torch.convert`),
   so a buffer written by either package reads in the other.  Where the JAX
   package vmaps the experts, the port trains them one after another: each
@@ -55,7 +53,7 @@ class SFGC(CondensationBase):
         super().__init__(data, args)
         self.buf_path = os.path.join(
             args.save_path, self.buffer_dir,
-            f"{data.name}_{args.attack}_0.25_{args.seed}.npz")
+            f"{data.name}_{args.attack}_{args.ptb_r}_{args.seed}.npz")
         self.expert_model = M.get_model("GCN", M.ModelConfig(
             nfeat=self.d, nhid=args.hidden, nclass=data.nclass,
             nlayers=args.nlayers, dropout=0.0))

@@ -3,9 +3,11 @@
 Counterpart of ``graphslim_tpu/train_all.py``.  Run as
 ``python -m graphslim_tpu_torch.train_all -D ogbn-arxiv -M gcond``
 (add ``--device cpu`` to run on the CPU; ``--resume`` picks up the train
-state a condensation run saved at its last checkpoint).  The tracker,
-profiling, attack and distributed branches are not ported yet and raise
-when asked for.
+state a condensation run saved at its last checkpoint; ``--attack
+random_adj|random_feat|metattack`` corrupts the graph before the
+reduction, :mod:`graphslim_tpu_torch.data.attack`).  The tracker,
+profiling and distributed branches are not ported yet and raise when
+asked for.
 """
 
 from __future__ import annotations
@@ -15,13 +17,13 @@ import logging
 from graphslim_tpu_torch import utils
 from graphslim_tpu_torch.config import Args, get_args
 from graphslim_tpu_torch.data import load
+from graphslim_tpu_torch.data.attack import attack
 from graphslim_tpu_torch.eval import Evaluator
 from graphslim_tpu_torch.reduce import create_reducer
 
 log = logging.getLogger("graphslim_tpu_torch")
 
 _NOT_PORTED = {
-    "attack": "data/attack.py (ROADMAP.md, queue 1, item 13)",
     "wandb": "tracking.py (ROADMAP.md, queue 1, item 8)",
     "profile": "profiling.py (ROADMAP.md, queue 1, item 15)",
     "dist_devices": "dist/ (ROADMAP.md, queue 1, item 14)",
@@ -44,6 +46,8 @@ def run(args: Args):
                  seed=args.seed, data_dir=args.load_path,
                  pre_norm=args.pre_norm, device=args.device)
     utils.seed_everything(args.seed)
+    if args.attack is not None:
+        graph = attack(graph, args)
     agent = create_reducer(args.method, graph, args)
     reduced = agent.reduce(graph, verbose=args.verbose)
     (mean, std), _ = Evaluator(graph, args).evaluate(

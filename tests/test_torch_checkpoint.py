@@ -20,8 +20,9 @@ from graphslim_tpu.data import save_reduced as jsave_reduced
 from graphslim_tpu_torch import run_eval
 from graphslim_tpu_torch.checkpoint import load_state, save_state
 from graphslim_tpu_torch.config import Args, finalize
-from graphslim_tpu_torch.data import load, read_npz
+from graphslim_tpu_torch.data import load, read_npz, save_reduced
 from graphslim_tpu_torch.eval import Evaluator
+from graphslim_tpu_torch.graph import Reduced
 from graphslim_tpu_torch.reduce import create_reducer
 
 
@@ -168,9 +169,40 @@ def test_run_eval_reads_a_triple_the_jax_package_saved(tmp_path, capsys,
     assert m.groups() == (f"{want * 100:.2f}", f"{want_std * 100:.2f}")
 
 
-@pytest.mark.parametrize("flag", [["--attack", "random"],
-                                  ["--dist_devices", "2"]])
+@pytest.mark.parametrize("flag", [["--dist_devices", "2"]])
 def test_run_eval_refuses_branches_not_ported(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_eval.main(["-D", "synth-hard", "-M", "gcond", "--device", "cpu",
                        "--save_path", str(tmp_path)] + flag)
+
+
+@pytest.mark.parametrize("present", [True, False])
+def test_run_eval_reads_the_attacked_triple(tmp_path, present):
+    """``--attack metattack`` reads the triple under
+    ``corrupt_graph/metattack/`` (a clean triple beside it is not read),
+    and names that path when it is missing."""
+    rng = np.random.default_rng(1)
+    n_syn, d = 20, load("synth-hard", seed=0, device="cpu").n_feat
+    for attack in (None, "metattack") if present else (None,):
+        save_reduced(Reduced(
+            feat=torch.as_tensor(rng.normal(size=(n_syn, d)),
+                                 dtype=torch.float32),
+            adj=None, labels=torch.arange(n_syn) % 5),
+            str(tmp_path), "gcond", "synth-hard", 0.5, 1, attack=attack)
+    argv = ["-D", "synth-hard", "-M", "gcond", "-R", "0.5", "--device",
+            "cpu", "--save_path", str(tmp_path), "--run_eval", "1",
+            "--eval_epochs", "20", "--eval_model", "SGC", "--attack",
+            "metattack"]
+    path = (tmp_path / "corrupt_graph" / "metattack" / "reduced_graph" /
+            "gcond" / "synth-hard_0.5_1.npz")
+    if not present:
+        with pytest.raises(FileNotFoundError, match=str(path)):
+            run_eval.main(argv)
+        return
+    got = run_eval.main(argv)
+    args = run_eval.get_args(argv)
+    tds = load(args.dataset, setting=args.setting, split=args.split,
+               seed=args.seed, pre_norm=args.pre_norm, device="cpu")
+    (want, want_std), _ = Evaluator(tds, args).evaluate(
+        read_npz(str(path), device="cpu"), "SGC")
+    assert got == (want, want_std)

@@ -73,18 +73,30 @@ def test_entry_points_default_to_the_card():
                                     "gcdm", "gcdmx", "sgdd", "run_eval",
                                     "clustering", "averaging", "vng",
                                     "msgc", "mirage", "gecc", "gcsntk",
-                                    "simgc", "sfgc", "geom", "gdem"])
+                                    "simgc", "sfgc", "geom", "gdem",
+                                    "attack", "LargeDataLoader",
+                                    "load_data_dir"])
 def test_new_entry_points_default_to_the_card(method, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     from graphslim_tpu_torch import run_eval
     from graphslim_tpu_torch.config import Args, finalize
+    from graphslim_tpu_torch.data import load
+    from graphslim_tpu_torch.data.largeloader import LargeDataLoader
     from graphslim_tpu_torch.train_all import run
 
     with pytest.raises(RuntimeError, match="CUDA"):
         if method == "run_eval":
             run_eval.main(["-D", "synth-hard", "-M", "gcond",
                            "--save_path", str(tmp_path)])
+        elif method == "attack":
+            run(finalize(Args(dataset="synth-hard", attack="metattack",
+                              save_path=str(tmp_path))))
+        elif method == "LargeDataLoader":
+            LargeDataLoader(load("synth-hard"))
+        elif method == "load_data_dir":
+            load("synth-small", data_dir=str(REPO / "tests" / "fixtures"
+                                             / "saint-small"))
         else:
             run(finalize(Args(dataset="synth-hard", method=method,
                               save_path=str(tmp_path))))
@@ -92,6 +104,7 @@ def test_new_entry_points_default_to_the_card(method, tmp_path):
 
 def _tiny_builders():
     import numpy as np
+    import scipy.sparse as sp
 
     from graphslim_tpu_torch import graph as G
     from graphslim_tpu_torch import convert
@@ -102,6 +115,7 @@ def _tiny_builders():
     lin = {"layers": [{"w": np.ones((2, 2)), "b": np.zeros(2)}]}
     return {
         "from_edge_index": lambda: G.from_edge_index(ei, 3),
+        "from_scipy": lambda: G.from_scipy(sp.eye(3, format="coo")),
         "submatrix": lambda: G.submatrix(host, np.array([0, 1])),
         "pge_params_from_jax": lambda: convert.pge_params_from_jax(
             dict(lin, bns=[{"scale": np.ones(2), "bias": np.zeros(2)}])),
@@ -115,7 +129,8 @@ def _tiny_builders():
     }
 
 
-@pytest.mark.parametrize("name", ["from_edge_index", "submatrix",
+@pytest.mark.parametrize("name", ["from_edge_index", "from_scipy",
+                                  "submatrix",
                                   "pge_params_from_jax",
                                   "model_params_from_jax",
                                   "ignr_params_from_jax",

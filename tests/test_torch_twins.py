@@ -19,7 +19,7 @@ from graphslim_tpu.data.loader import normalize_name as jnormalize
 from graphslim_tpu_torch.config import Args, finalize
 from graphslim_tpu_torch.data import DATASET_SPECS, load
 from graphslim_tpu_torch.data.loader import normalize_name
-from graphslim_tpu_torch.reduce.registry import _PORTED
+from graphslim_tpu_torch.reduce.registry import REGISTRY
 
 SLOW = {"reddit", "ogbn-products", "physics", "cs", "ogbn-arxiv"}
 RAISE = {"ogbn-proteins", "ogbn-papers100m"}
@@ -51,7 +51,7 @@ def test_every_name_normalizes_as_in_jax(alias):
         normalize_name("no-such-twin")
 
 
-@pytest.mark.parametrize("method", sorted(_PORTED))
+@pytest.mark.parametrize("method", sorted(REGISTRY))
 def test_finalize_matches_jax_on_every_dataset(method):
     """Setting, rate, metric and every method-table value the port has a
     field for, for every dataset."""
@@ -124,7 +124,7 @@ def test_karate_is_zacharys_graph():
 
 @pytest.mark.parametrize("name", sorted(RAISE))
 def test_ingestion_only_twins_raise(name):
-    with pytest.raises(FileNotFoundError, match="item 13"):
+    with pytest.raises(FileNotFoundError, match=f"{name} is ingestion-only"):
         load(name, device="cpu")
     with pytest.raises(FileNotFoundError):
         jload(name)
