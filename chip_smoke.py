@@ -122,8 +122,8 @@ line of output each, any failed check raises (non-zero exit):
 13. edge sparsification and structural coarsening through
    ``train_all.run`` (each twin loaded once and handed to it) and the
    default evaluator (GCN, 300 epochs), at each twin's representative
-   rate (``COARSEN_RUNS``): (a) the cora twin, all 14 methods with 3
-   seeds, and heavy_edge and variation_edges with ``--coarsen_strategy
+   rate (``COARSEN_RUNS``): (a) the cora twin, all 14 methods with 1
+   seed, and heavy_edge and variation_edges with ``--coarsen_strategy
    optimal`` (the blossom); (b) the arxiv twin, random_edge, g_spar,
    scan, local_degree, spanning_forest and rank_degree, then heavy_edge
    (reported, not gated); (c) the pubmed twin, t_spanner, the variation
@@ -181,16 +181,41 @@ line of output each, any failed check raises (non-zero exit):
    version and float64 on the raw adjacencies PRBCD multiplies (cora at
    d = 64, 7; arxiv at 64, 40), the attacked arxiv Â at the widths (d)
    launched and the train subgraph's Â at 128.  Launches by kernel,
-   each run's counted from 0, and peak memory.
+   each run's counted from 0, and peak memory;
+16. the rest of evaluation, compat, visualization, tracking and
+   profiling on the arxiv twin and the shipped artifact: (a)
+   ``NasEvaluator.correlation`` over ``QUICK_SPACE`` (16 APPNP
+   architectures, 300 epochs a side), every original-graph accuracy
+   above the validation split's largest class; (b) ``mia_attack`` on an
+   SGC and a GCN fitted on the artifact, in [0.5, 1]; (c) the artifact's
+   ``PropertyEvaluator.properties``, kcenter on the cora twin (r = 0.5)
+   through ``train_all.run --wandb`` and ``compare`` on it; (d)
+   ``tsne_vis`` and ``draw_graph_pair`` (PNGs over 1 kB) where matplotlib
+   and scikit-learn are installed, else the pair's networkx graphs; (e)
+   ``to_torch`` / ``from_torch`` of the arxiv twin and the reference
+   layout's round trip of the artifact, equal; (f) GCond (1 epoch, one
+   checkpoint evaluation) + SGC through ``train_all.run --profile
+   --wandb``, whose trace must name ``pge_fwd_kernel``,
+   ``pge_bwd_kernel`` and ``spmm_blocked_kernel``, and ``Throughput`` of
+   20 blocked-SpMM launches at d = 128.  WandB's import is blocked (no
+   network), so both tracked runs must fall back to ``NullTracker`` with
+   its warning and log the reduced graph's stored entries.  Then the
+   blocked SpMM at the widths the phase launched that no earlier phase
+   holds (the cora twin's Â).
+
+Every profiled window goes through ``profiled`` on
+``graphslim_tpu_torch.profiling.session``, which fails when the window
+recorded no device time and logs a window whose trace lacks entries of a
+port kernel that its launch counter saw.
 
 Phases 6 and 7 run before phase 4.  The line before the last is the
-``kernels`` JSON (launches: phases 4, 8, 9, 10, 11, 12, 13, 14 and 15);
+``kernels`` JSON (launches: phases 4 and 8 to 16);
 the last line is ``{"ok": true, "device": {...}}``.  ``--only kernels``
 stops after the kernel comparisons (phases 2, 3, 6, 7); ``--only
 condense`` runs phase 9 alone (after the build), ``--only cluster`` phase
 10, ``--only distill`` phase 11, ``--only ind`` phase 12, ``--only
-coarsen`` phase 13, ``--only zoo`` phase 14 and ``--only attack`` phase
-15, and none of them prints a result.
+coarsen`` phase 13, ``--only zoo`` phase 14, ``--only attack`` phase
+15 and ``--only analysis`` phase 16, and none of them prints a result.
 Without a CUDA card, or outside a checkout, it exits non-zero and prints
 no result.
 """
@@ -596,7 +621,6 @@ class EpochTimer:
 
     def __call__(self, *a, **kw):
         import torch
-        from torch.profiler import ProfilerActivity, profile
 
         if self.first_state is None:     # copies: epochs update in place
             from graphslim_tpu_torch.utils import tree_leaves
@@ -608,15 +632,13 @@ class EpochTimer:
         pge0, spmm0 = dict(self.K.LAUNCHES), dict(self.SB.LAUNCHES_BY_WIDTH)
         t0 = time.perf_counter()
         if len(self.seconds) == self.profile_at:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                out = self.fn(*a, **kw)
-                torch.cuda.synchronize()
-            self.kernels = device_time_by_kernel(prof)
+            out, wall, self.kernels = profiled(lambda: self.fn(*a, **kw),
+                                               host=True)
         else:
             out = self.fn(*a, **kw)
             torch.cuda.synchronize()
-        self.seconds.append(time.perf_counter() - t0)
+            wall = time.perf_counter() - t0
+        self.seconds.append(wall)
         self.pge.append({k: v - pge0[k] for k, v in self.K.LAUNCHES.items()})
         self.spmm.append({d: c - spmm0.get(d, 0) for d, c in
                           self.SB.LAUNCHES_BY_WIDTH.items()
@@ -632,19 +654,98 @@ class EpochTimer:
         return steps_per_epoch * TIMED / sum(secs), 1e3 * sum(secs) / TIMED
 
 
-def device_time_by_kernel(prof) -> dict:
-    """Device milliseconds per kernel name from a torch.profiler run."""
+def device_time_by_kernel(prof) -> tuple:
+    """({kernel name: device ms}, {kernel name: entries}) of a
+    torch.profiler run, the session's preamble spins left out."""
     from torch.autograd import DeviceType
 
-    out = {}
+    from graphslim_tpu_torch.profiling import PREAMBLE_KERNEL
+
+    ms, entries = {}, {}
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or PREAMBLE_KERNEL in e.key:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        out[e.key] = out.get(e.key, 0.0) + us / 1e3
-    return out
+        ms[e.key] = ms.get(e.key, 0.0) + us / 1e3
+        entries[e.key] = entries.get(e.key, 0) + e.count
+    return ms, entries
+
+
+# The port's kernels by the names their entries carry in a trace, and the
+# launch counters that count them (kernel module, key).
+TRACED = {"pge_fwd": (("pge_fwd_kernel", "pge_fwd_simt_kernel"), "K",
+                      ("pge_fwd_ws", "pge_fwd_nows")),
+          "pge_bwd": (("pge_bwd_kernel",), "K", ("pge_bwd",)),
+          "spmm_blocked": (("spmm_blocked_kernel",), "SB",
+                           ("spmm_blocked",)),
+          "smem_gather": (("gather_direct_kernel", "smem_gather_kernel"),
+                          "SG", ("smem_gather",))}
+# Across the run's profiled windows: their number, the earliest device
+# event of each against the host's clock at the start of its body (µs;
+# negative where the device's timestamps run ahead of the host's), and
+# the port-kernel entries each short window's trace lacks.
+WINDOWS = {"n": 0, "skew_us": [], "short": []}
+
+
+def log_windows() -> None:
+    skew, short = WINDOWS["skew_us"], WINDOWS["short"]
+    if skew:
+        log(f"profiled windows: {WINDOWS['n']}, {len(short)} short of "
+            f"{sum(short)} port-kernel entries in all; earliest device "
+            f"event against the host's clock at the body's start: "
+            f"{min(skew):.1f} to {max(skew):.1f} us")
+
+
+def profiled(fn, host: bool = False, tag: str = "") -> tuple:
+    """(result, wall s, {kernel: device ms}) of ``fn()`` in one
+    ``graphslim_tpu_torch.profiling.session`` window: the card's work, and
+    with ``host`` the host's operators too (a whole reduce has host loops
+    of thousands of operators, which a host trace slows severalfold).  The
+    wall is taken inside the window, around ``fn`` and a synchronize.
+    Fails when the window recorded no device time; a window whose trace
+    holds fewer or more entries of a port kernel than its counter saw
+    launches is logged and counted (``log_windows``)."""
+    import torch
+
+    from graphslim_tpu_torch import profiling
+    from graphslim_tpu_torch.kernels import pge as K
+    from graphslim_tpu_torch.kernels import smem_gather as SG
+    from graphslim_tpu_torch.kernels import spmm_blocked as SB
+
+    mods = {"K": K, "SB": SB, "SG": SG}
+
+    def counts() -> dict:
+        return {f: sum(mods[m].LAUNCHES[k] for k in keys)
+                for f, (_, m, keys) in TRACED.items()}
+
+    before = counts()
+    with profiling.session("cuda", host=host) as prof:
+        t_ns = time.time_ns()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launched = {f: c - before[f] for f, c in counts().items()}
+    kernels, entries = device_time_by_kernel(prof)
+    if not sum(kernels.values()) > 0:
+        fail(f"{tag}torch.profiler recorded no device time")
+    traced = {f: sum(c for k, c in entries.items()
+                     if any(name in k for name in names))
+              for f, (names, _, _) in TRACED.items()}
+    if traced != launched:
+        WINDOWS["short"].append(sum(launched.values())
+                                - sum(traced.values()))
+        log(f"{tag}profiled window short: its trace holds {traced} "
+            f"entries of the port's kernels against {launched} launches "
+            f"counted (PERF.md §7)")
+    starts = [e.start_ns() for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA
+              and profiling.PREAMBLE_KERNEL not in e.name()]
+    WINDOWS["n"] += 1
+    WINDOWS["skew_us"].append((min(starts) - t_ns) / 1e3)
+    return out, wall, kernels
 
 
 def run_gcond(K, SB, ds, save_path: str) -> tuple:
@@ -706,8 +807,6 @@ def run_gcond(K, SB, ds, save_path: str) -> tuple:
         f"inner_adj + {extra} inference_adj without)")
     kern = timer.kernels
     busy = sum(kern.values())
-    if not busy > 0:
-        fail("torch.profiler recorded no device time")
     pge = {name: sum(v for k, v in kern.items() if f"pge::{name}_kernel" in k)
            for name in ("pge_fwd", "pge_bwd")}
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:4]
@@ -1060,7 +1159,6 @@ def run_coresets(SB, SG, G) -> tuple:
     returns the kernels' launch counts over the three runs and the selected
     subgraphs that the GCN evaluations trained on."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from graphslim_tpu_torch import models as M
     from graphslim_tpu_torch import train_all as TA
@@ -1190,13 +1288,8 @@ def run_coresets(SB, SG, G) -> tuple:
 
     fit(2)
     epoch_ms = (fit(12) - fit(2)) / 10
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fit(1)
-    kern = device_time_by_kernel(prof)
+    _, _, kern = profiled(lambda: fit(1), host=True)
     busy = sum(kern.values())
-    if not busy > 0:
-        fail("torch.profiler recorded no device time")
     spmm_ms = sum(v for k, v in kern.items() if "spmm_blocked_kernel" in k)
     top4 = sorted(kern.items(), key=lambda kv: -kv[1])[:4]
     log(f"kcenter full-graph GCN: best validation {best_val:.4f}; logits "
@@ -1296,8 +1389,6 @@ def run_condensers(K, SB, ds, tmp: str) -> dict:
         fail(f"doscond: a no-grad PGE forward inside an epoch {timer.pge}")
     kern = timer.kernels
     busy = sum(kern.values())
-    if not busy > 0:
-        fail("doscond: torch.profiler recorded no device time")
     fwd = sum(v for k, v in kern.items() if "pge::pge_fwd_kernel" in k)
     bwd = sum(v for k, v in kern.items() if "pge::pge_bwd_kernel" in k)
     acc, std, t_eval, losses = evaluate_result(ds, args, red, eng)
@@ -1375,8 +1466,6 @@ def run_condensers(K, SB, ds, tmp: str) -> dict:
              f"expected {want} (one at d = {args.hidden} an outer step)")
     kern = timer.kernels
     busy = sum(kern.values())
-    if not busy > 0:
-        fail("gcdm: torch.profiler recorded no device time")
     spmm_ms = sum(v for k, v in kern.items() if "spmm_blocked_kernel" in k)
     acc, std, t_eval, losses = evaluate_result(ds, args, red, eng)
     rate, wall = timer.rate(args.outer_loop)
@@ -1600,8 +1689,6 @@ def run_clusterers(SB, ds, tmp: str) -> dict:
              f"{tuple(red.adj.shape)}")
     kern = timer.kernels
     busy = sum(kern.values())
-    if not busy > 0:
-        fail("msgc: torch.profiler recorded no device time")
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:5]
     losses = [float(x) for x in eng.epoch_loss_sums]
     log(f"msgc ogbn-arxiv (SGC ntrans 2, ours, init clustering, batch_adj "
@@ -1731,22 +1818,18 @@ class Stamps:
 
     def __call__(self, *a, **kw):
         import torch
-        from torch.profiler import ProfilerActivity, profile
 
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         self.at.append(t0)
         if len(self.seconds) == self.profile_at:
-            kinds = [ProfilerActivity.CUDA] if self.device_only else \
-                [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-            with profile(activities=kinds) as prof:
-                out = self.fn(*a, **kw)
-                torch.cuda.synchronize()
-            self.kernels = device_time_by_kernel(prof)
+            out, wall, self.kernels = profiled(
+                lambda: self.fn(*a, **kw), host=not self.device_only)
         else:
             out = self.fn(*a, **kw)
             torch.cuda.synchronize()
-        self.seconds.append(time.perf_counter() - t0)
+            wall = time.perf_counter() - t0
+        self.seconds.append(wall)
         return out
 
 
@@ -1849,8 +1932,6 @@ def run_distillers(K, SB, SG, ds, tmp: str, stats: dict) -> dict:
     rate = len(timed) / sum(timed)
     kern = tm["step"].kernels
     busy = sum(kern.values())
-    if not busy > 0:
-        fail("simgc: torch.profiler recorded no device time")
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:4]
     log(f"simgc ogbn-arxiv r=0.01 (SGC teacher: 3 propagations, ntrans 2, "
         f"BN, dropout 0.5, {min(1000, max(2 * args.eval_epochs, 200))} "
@@ -2128,22 +2209,10 @@ class Launches:
 
 
 def busy_ms(fn) -> tuple:
-    """(result, wall s, device-busy ms) of ``fn()`` under torch.profiler,
-    tracing the card's work alone (a whole reduce has host loops of
-    thousands of operators, which a host trace would slow severalfold)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    busy = sum(device_time_by_kernel(prof).values())
-    if not busy > 0:
-        fail("torch.profiler recorded no device time")
-    return out, wall, busy
+    """(result, wall s, device-busy ms) of ``fn()`` in a device-only
+    profiled window (``profiled``)."""
+    out, wall, kernels = profiled(fn)
+    return out, wall, sum(kernels.values())
 
 
 def pge_rule(launches: dict, outer: int, nograd: int) -> None:
@@ -2463,9 +2532,9 @@ UNGATED = {"spanning_forest", "t_spanner"}
 # two); (b) the arxiv twin, six sparsifiers (reported, not gated) and
 # heavy_edge (n_syn and entries only); (c) pubmed; (d) flickr, inductive
 COARSEN_RUNS = (
-    [("cora", m, {}, 3, m not in UNGATED)
+    [("cora", m, {}, 1, m not in UNGATED)
      for m in EDGE_SPARSIFIERS + COARSENERS]
-    + [("cora", m, {"coarsen_strategy": "optimal"}, 3, True)
+    + [("cora", m, {"coarsen_strategy": "optimal"}, 1, True)
        for m in ("heavy_edge", "variation_edges")]
     + [("ogbn-arxiv", m, {}, 1, False) for m in EDGE_SPARSIFIERS[:6]]
     + [("ogbn-arxiv", "heavy_edge", {}, 1, False)]
@@ -2730,22 +2799,10 @@ IDLE_EPOCHS = 20     # the profiled fit that gives a model's idle share
 
 
 def profiled_busy(fn) -> tuple:
-    """(wall ms, device-busy ms) of ``fn()`` under torch.profiler tracing
-    the card, the wall taken inside the trace (its start-up and parsing
-    left out)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)
-    busy = sum(device_time_by_kernel(prof).values())
-    if not busy > 0:
-        fail("torch.profiler recorded no device time")
-    return wall, busy
+    """(wall ms, device-busy ms) of ``fn()`` in a device-only profiled
+    window (``profiled``)."""
+    _, wall, kernels = profiled(fn)
+    return 1e3 * wall, sum(kernels.values())
 
 
 def zoo_evaluator(SB, SG, rows: list, totals: dict, widths_seen: set):
@@ -3472,11 +3529,373 @@ def run_attack(K, SB, SG, G, arxiv, tmp: str, stats: dict) -> dict:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the rest of evaluation, compat, visualization, tracking and
+# profiling
+# ---------------------------------------------------------------------------
+
+ARTIFACT = os.path.join("benchmark", "artifacts", "arxiv_gcond_r0.01.npz")
+# the arxiv Â's widths that phases 7 and 14 hold
+ARXIV_HELD = {128, 256, 40, 129, 64, 192} | set(ZOO_HELD["arxiv"])
+PROFILED_KERNELS = ("pge_fwd_kernel", "pge_bwd_kernel", "spmm_blocked_kernel")
+
+
+def run_analysis(K, SB, SG, G, ds, tmp: str, stats: dict) -> dict:
+    """Phase 16 on the arxiv twin ``ds`` and the shipped artifact: (a) NAS
+    over ``QUICK_SPACE``, (b) the confidence MIA, (c) graph properties and
+    kcenter on the cora twin through ``train_all.run --wandb``, (d) t-SNE
+    and the graph pair, (e) ``compat`` round trips, (f) ``train_all.run
+    --profile --wandb`` of GCond and ``Throughput``; then the blocked SpMM
+    at the widths of this phase no earlier phase holds.  Returns each
+    kernel's launches over the runs (counted from 0 before each)."""
+    import glob
+    import importlib.util
+    import logging
+
+    import numpy as np
+    import torch
+
+    from graphslim_tpu_torch import compat, utils
+    from graphslim_tpu_torch import models as M
+    from graphslim_tpu_torch import train_all as TA
+    from graphslim_tpu_torch import visualization as V
+    from graphslim_tpu_torch.config import Args, finalize
+    from graphslim_tpu_torch.data import load, read_npz
+    from graphslim_tpu_torch.eval import (Evaluator, NasEvaluator,
+                                          PropertyEvaluator, mia_attack)
+    from graphslim_tpu_torch.eval.nas import QUICK_SPACE
+    from graphslim_tpu_torch.profiling import Throughput
+    from graphslim_tpu_torch.tracking import NullTracker
+
+    dev = ds.device
+    t_phase = time.perf_counter()
+    totals = {"pge_fwd": 0, "pge_bwd": 0, "spmm_blocked": 0,
+              "smem_gather": 0}
+    widths = {"arxiv": set(), "cora": set()}
+
+    def add(launches: dict, graph: str) -> dict:
+        for k, v in launches.items():
+            if k.startswith("pge_fwd"):
+                totals["pge_fwd"] += v
+            elif k == "pge_bwd":
+                totals["pge_bwd"] += v
+            elif k == "gather":
+                totals["smem_gather"] += v
+            else:
+                totals["spmm_blocked"] += v
+                widths[graph].add(int(k.split("=")[1]))
+        return launches
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    art = read_npz(os.path.join(HERE, ARTIFACT), device=dev)
+    args = finalize(Args(dataset="ogbn-arxiv", method="gcond",
+                         eval_epochs=300, save_path=tmp, device=dev.type),
+                    explicit={"eval_epochs"})
+    val_labels = ds.labels.cpu().numpy()[ds.idx_val]
+    majority = float(np.bincount(val_labels).max() / val_labels.shape[0])
+
+    # --- (a) NAS over the quick space --------------------------------------
+    nas = NasEvaluator(ds, args, space=QUICK_SPACE)
+    secs, accs = {}, {}
+    for side in ("ori", "syn"):
+        fn = getattr(nas, f"evaluate_{side}")
+
+        def timed(*a, _fn=fn, _side=side):
+            sync()
+            t0 = time.perf_counter()
+            out = _fn(*a)
+            sync()
+            secs[_side] = time.perf_counter() - t0
+            accs[_side] = out
+            return out
+        setattr(nas, f"evaluate_{side}", timed)
+    count = Launches(K, SB, SG)
+    res = nas.correlation(art)
+    nas_l = add(count.since(), "arxiv")
+    ori = accs["ori"]
+    if len(ori) != 16 or not (np.isfinite(ori).all()
+                              and (ori > majority).all()):
+        fail(f"NAS: original-graph accuracies {ori} not finite or not all "
+             f"above the validation split's largest class {majority:.4f}")
+    if not np.isfinite(accs["syn"]).all():
+        fail(f"NAS: reduced-graph accuracies {accs['syn']}")
+    log(f"analysis (a) NAS over QUICK_SPACE (16 APPNP architectures, 300 "
+        f"epochs each, a side): original graph {secs['ori']:.2f} s "
+        f"(accuracies {np.round(ori, 4).tolist()}, all above the val "
+        f"split's largest class {majority:.4f}), artifact "
+        f"{secs['syn']:.2f} s (accuracies "
+        f"{np.round(accs['syn'], 4).tolist()}); pearson_acc "
+        f"{res['pearson_acc']:.4f}, pearson_rank {res['pearson_rank']:.4f}, "
+        f"best_ori {res['best_ori']}, best_syn {res['best_syn']}; launches "
+        f"{nas_l}")
+
+    # --- (b) the confidence MIA on an SGC and a GCN fitted on the artifact
+    ev = Evaluator(ds, args)
+    parts = []
+    for mt in ("SGC", "GCN"):
+        model = ev._eval_model(mt, art.feat.shape[1])
+        tx, tadj, ty = ev._train_tuple(art, mt)
+        count = Launches(K, SB, SG)
+        sync()
+        t0 = time.perf_counter()
+        params, best_val, _ = M.fit_with_val(
+            model, utils.make_generator(0, dev), train=(tx, tadj, ty, None),
+            val=ds.split_batch("val"),
+            cfg=M.TrainConfig(epochs=args.eval_epochs, lr=0.01))
+        sync()
+        t_fit = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mia = mia_attack(model, params, ds)
+        t_mia = time.perf_counter() - t0
+        launched = add(count.since(), "arxiv")
+        if not 0.5 <= mia <= 1.0:
+            fail(f"MIA on {mt}: {mia} outside [0.5, 1]")
+        parts.append(f"{mt}: fit {t_fit:.2f} s (best val "
+                     f"{float(best_val):.4f}), mia_attack {mia:.4f} in "
+                     f"{t_mia:.3f} s, launches {launched}")
+    log("analysis (b) MIA on the artifact's models: " + "; ".join(parts))
+
+    # --- (c) properties; kcenter on cora through train_all.run --wandb ----
+    t0 = time.perf_counter()
+    props = PropertyEvaluator(ds, args).properties(art.adj, art.feat,
+                                                   art.labels)
+    t_props = time.perf_counter() - t0
+    if not all(math.isfinite(v) for v in props.values()):
+        fail(f"artifact properties not finite: {props}")
+    cora = load("cora", seed=0, device=dev)
+    real = (TA.load, TA.create_reducer, TA.build_tracker)
+    seen: dict = {}
+    warned: list = []
+
+    class Warned(logging.Handler):
+        def emit(self, record):
+            if "wandb unavailable" in record.getMessage():
+                warned.append(record.getMessage())
+
+    def load_loaded(name, **kw):
+        return {"cora": cora, "ogbn-arxiv": ds}[name]
+
+    def create_seen(method, data, a, **kw):
+        agent = real[1](method, data, a, **kw)
+        reduce = agent.reduce
+
+        def seen_reduce(*x, **k):
+            seen["reduced"] = reduce(*x, **k)
+            return seen["reduced"]
+        agent.reduce = seen_reduce
+        return agent
+
+    def tracker_seen(a):
+        tracker = real[2](a)
+        seen["tracker"], seen["graphs"] = tracker, {}
+        log_graph = tracker.log_graph
+
+        def logged(name, summary):
+            seen["graphs"][name] = summary
+            log_graph(name, summary)
+        tracker.log_graph = logged
+        return tracker
+
+    handler = Warned()
+    logging.getLogger("graphslim_tpu_torch").addHandler(handler)
+    # no network here: WandB's import is blocked, so the tracker falls
+    # back to NullTracker with its warning, as without the package
+    wandb_mod = sys.modules.get("wandb")
+    sys.modules["wandb"] = None
+    TA.load, TA.create_reducer, TA.build_tracker = (load_loaded, create_seen,
+                                                    tracker_seen)
+
+    def tracked(tag: str, red) -> str:
+        graphs = seen["graphs"]
+        want = TA.reduced_edges(red)
+        if not isinstance(seen["tracker"], NullTracker) or not warned:
+            fail(f"{tag}: tracker {type(seen['tracker']).__name__}, "
+                 f"warnings {warned}")
+        if graphs["reduced"]["edges"] != want or \
+                graphs["reduced"]["nodes"] != red.n_syn:
+            fail(f"{tag}: tracked reduced graph {graphs['reduced']}, "
+                 f"expected {red.n_syn} nodes, {want} edges")
+        return (f"NullTracker (warned), original {graphs['original']}, "
+                f"reduced {graphs['reduced']}")
+
+    try:
+        kargs = finalize(Args(dataset="cora", method="kcenter",
+                              reduction_rate=0.5, run_eval=1,
+                              eval_epochs=300, wandb=True,
+                              save_path=os.path.join(tmp, "kcenter"),
+                              device=dev.type),
+                         explicit={"reduction_rate", "run_eval",
+                                   "eval_epochs", "wandb"})
+        count = Launches(K, SB, SG)
+        t0 = time.perf_counter()
+        k_mean, _ = TA.run(kargs)
+        t_k = time.perf_counter() - t0
+        k_l = add(count.since(), "cora")
+        red = seen["reduced"]
+        if red.adj is not None and int((red.dense_adj() != 0).sum()) != \
+                TA.reduced_edges(red):
+            fail("kcenter cora: the reduced edge count differs from the "
+                 "dense adjacency's nonzeros")
+        k_track = tracked("kcenter cora", red)
+        t0 = time.perf_counter()
+        cmp = PropertyEvaluator(cora, kargs).compare(red)
+        t_cmp = time.perf_counter() - t0
+        for side in ("original", "reduced"):
+            if not all(math.isfinite(v) for v in cmp[side].values()):
+                fail(f"cora compare: {side} {cmp[side]}")
+        log(f"analysis (c) PropertyEvaluator.properties of the artifact "
+            f"(1354 nodes, dense) {t_props:.2f} s: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in props.items())
+            + f"; kcenter cora r=0.5 through train_all.run --wandb "
+            f"{t_k:.2f} s (GCN 1 seed {k_mean:.4f}, launches {k_l}; "
+            f"{k_track}); compare on the cora twin ({cora.n_nodes} nodes) "
+            f"{t_cmp:.2f} s: original "
+            + ", ".join(f"{k} {v:.4f}" for k, v in cmp["original"].items())
+            + "; reduced "
+            + ", ".join(f"{k} {v:.4f}" for k, v in cmp["reduced"].items()))
+
+        # --- (d) t-SNE and the graph pair --------------------------------
+        if all(importlib.util.find_spec(m) is not None
+               for m in ("matplotlib", "sklearn")):
+            t0 = time.perf_counter()
+            png = ev.tsne_vis(art, os.path.join(tmp, "tsne.png"),
+                              max_real=2000)
+            t_tsne = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            pair = V.draw_graph_pair(ds, art, os.path.join(tmp, "pair.png"))
+            t_pair = time.perf_counter() - t0
+            for path in (png, pair):
+                if os.path.getsize(path) <= 1024:
+                    fail(f"{path}: {os.path.getsize(path)} bytes")
+            log(f"analysis (d) tsne_vis (2000 real rows + 1354) {t_tsne:.2f}"
+                f" s, {os.path.getsize(png)} bytes; draw_graph_pair "
+                f"{t_pair:.2f} s, {os.path.getsize(pair)} bytes")
+        else:
+            t0 = time.perf_counter()
+            g_ori, _ = V._to_networkx(ds.adj, ds.labels)
+            g_art, _ = V._to_networkx(art.adj, art.labels)
+            t_nx = time.perf_counter() - t0
+            log(f"analysis (d) matplotlib / scikit-learn not installed on "
+                f"this machine: no t-SNE or graph-pair PNG; the pair's "
+                f"networkx graphs (arxiv twin {g_ori.number_of_nodes()} "
+                f"nodes / {g_ori.number_of_edges()} edges, artifact "
+                f"{g_art.number_of_nodes()} / {g_art.number_of_edges()}) "
+                f"{t_nx:.2f} s")
+
+        # --- (e) compat round trips --------------------------------------
+        t0 = time.perf_counter()
+        blob = compat.to_torch(ds)
+        t_to = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        feat2, adj2, labels2 = compat.from_torch(
+            blob["x"], blob["edge_index"], blob["y"], blob["edge_weight"],
+            device=dev)
+        sync()
+        t_from = time.perf_counter() - t0
+        h, h2 = G.host_of(ds.adj), G.host_of(adj2)
+        r = int(np.argmax(np.diff(h.indptr)))      # the heaviest row
+        a, b = h.indptr[r], h.indptr[r + 1]
+        a2, b2 = h2.indptr[r], h2.indptr[r + 1]
+        if adj2.nnz != ds.adj.nnz or not (
+                np.array_equal(h.col[a:b], h2.col[a2:b2])
+                and np.array_equal(h.values_or_ones()[a:b],
+                                   h2.values_or_ones()[a2:b2])
+                and torch.equal(feat2[r], ds.feat[r])
+                and torch.equal(labels2, ds.labels)):
+            fail(f"to_torch / from_torch of the arxiv twin: {adj2.nnz} "
+                 f"entries against {ds.adj.nnz}, or row {r} differs")
+        t0 = time.perf_counter()
+        compat.save_reference_layout(art, os.path.join(tmp, "ref"), "gcond",
+                                     "ogbn-arxiv", 0.01)
+        back = compat.load_reference_reduced(os.path.join(tmp, "ref"),
+                                             "gcond", "ogbn-arxiv", 0.01,
+                                             device=dev)
+        t_ref = time.perf_counter() - t0
+        if not (torch.equal(back.adj, art.adj)
+                and torch.equal(back.labels, art.labels.long())):
+            fail("save_reference_layout / load_reference_reduced of the "
+                 "artifact: the graph read back differs")
+        log(f"analysis (e) to_torch of the arxiv twin {t_to:.2f} s "
+            f"({blob['edge_index'].shape[1]} entries), from_torch "
+            f"{t_from:.2f} s (the same entry count; row {r}, {b - a} "
+            f"entries, equal); reference layout round trip of the artifact "
+            f"{t_ref:.2f} s, equal")
+
+        # --- (f) train_all.run --profile --wandb of GCond ------------------
+        warned.clear()
+        save_f = os.path.join(tmp, "gcond")
+        fargs = finalize(Args(dataset="ogbn-arxiv", method="gcond",
+                              epochs=1, eval_model="SGC", run_eval=1,
+                              eval_epochs=300, profile=True, wandb=True,
+                              save_path=save_f, device=dev.type),
+                         explicit={"epochs", "eval_model", "run_eval",
+                                   "eval_epochs", "profile", "wandb"})
+        # one checkpoint evaluation (one quick training) inside the trace
+        fargs = fargs.replace(checkpoints=(0,), run_inter_eval=1)
+        count = Launches(K, SB, SG)
+        t0 = time.perf_counter()
+        g_mean, _ = TA.run(fargs)
+        t_g = time.perf_counter() - t0
+        g_l = add(count.since(), "arxiv")
+        g_track = tracked("gcond arxiv", seen["reduced"])
+    finally:
+        TA.load, TA.create_reducer, TA.build_tracker = real
+        logging.getLogger("graphslim_tpu_torch").removeHandler(handler)
+        if wandb_mod is None:
+            sys.modules.pop("wandb", None)
+        else:
+            sys.modules["wandb"] = wandb_mod
+    traces = glob.glob(os.path.join(save_f, "traces", "gcond_ogbn-arxiv",
+                                    "*.pt.trace.json"))
+    if len(traces) != 1:
+        fail(f"--profile wrote {traces}")
+    with open(traces[0]) as f:
+        text = f.read()
+    missing = [k for k in PROFILED_KERNELS if k not in text]
+    if missing:
+        fail(f"the --profile trace names none of {missing}")
+    log(f"analysis (f) train_all.run --profile --wandb: GCond 1 epoch (20 "
+        f"outer steps, one checkpoint evaluation) + SGC 1 seed on arxiv "
+        f"{t_g:.2f} s, accuracy {g_mean:.4f}, launches {g_l}; trace "
+        f"{os.path.basename(traces[0])} {len(text) / 2 ** 20:.1f} MiB names "
+        + ", ".join(PROFILED_KERNELS) + f"; {g_track}")
+
+    adj = ds.adj_norm()
+    layout = adj.blocked()
+    x = torch.randn(adj.n_rows, 128, device=dev,
+                    generator=torch.Generator(dev).manual_seed(16))
+    SB.spmm_blocked(layout, x)
+    tp = Throughput(adj.nnz, device=dev)
+    for _ in range(20):
+        with tp.measure():
+            SB.spmm_blocked(layout, x)
+    log(f"analysis (f) Throughput of the blocked SpMM on the arxiv Â "
+        f"({adj.nnz} entries) at d = 128: {tp.per_second / 1e9:.4f} G "
+        f"edges/s ({tp.report()}; {1e3 * tp.elapsed / tp.calls:.4f} ms a "
+        f"call with its two synchronizations, beside PERF.md's 0.5644 ms "
+        f"of launches queued back to back)")
+
+    # --- the SpMM at the widths no earlier phase holds ----------------------
+    new = {"arxiv twin": (ds, sorted(widths["arxiv"] - ARXIV_HELD)),
+           "cora twin": (cora, sorted(widths["cora"]))}
+    for tag, (data, ws) in new.items():
+        if ws:
+            compare_spmm_reduced(SB, G, tag, data.adj_norm(), ws, stats,
+                                 normalized=True)
+    log(f"phase 16: {time.perf_counter() - t_phase:.1f} s, launches "
+        f"{totals}; SpMM widths: arxiv {sorted(widths['arxiv'])} (held "
+        f"here: {new['arxiv twin'][1]}), cora {sorted(widths['cora'])}")
+    return totals
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=["kernels", "condense", "cluster",
                                        "distill", "ind", "coarsen", "zoo",
-                                       "attack"],
+                                       "attack", "analysis"],
                     default=None)
     opts = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "graphslim_tpu_torch")):
@@ -3521,15 +3940,18 @@ def main() -> None:
     if opts.only == "ind":
         with tempfile.TemporaryDirectory() as tmp:
             run_ind(K, SB, SG, tmp, {})
+        log_windows()
         return
     t0 = time.perf_counter()
     ds = load("ogbn-arxiv", seed=0, device="cuda")
     log(f"load ogbn-arxiv twin: {ds.n_nodes} nodes, {ds.adj.nnz} edges, "
         f"{time.perf_counter() - t0:.1f} s")
     if opts.only in ("condense", "cluster", "distill", "coarsen", "zoo",
-                     "attack"):
+                     "attack", "analysis"):
         with tempfile.TemporaryDirectory() as tmp:
-            if opts.only == "attack":
+            if opts.only == "analysis":
+                run_analysis(K, SB, SG, G, ds, tmp, {})
+            elif opts.only == "attack":
                 run_attack(K, SB, SG, G, ds, tmp, {})
             elif opts.only == "zoo":
                 run_zoo(SB, SG, G, ds, tmp, {})
@@ -3541,6 +3963,7 @@ def main() -> None:
                 run_clusterers(SB, ds, tmp)
             else:
                 run_distillers(K, SB, SG, ds, tmp, {})
+        log_windows()
         return
 
     # --- phases 2-3 ------------------------------------------------------
@@ -3629,6 +4052,12 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         atk = run_attack(K, SB, SG, G, ds, tmp, stats)
 
+    # --- phase 16 --------------------------------------------------------
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ana = run_analysis(K, SB, SG, G, ds, tmp, stats)
+    log_windows()
+
     src = "graphslim_tpu_torch/csrc/"
     kernels = [
         # ms: the launch kind that keeps the workspace (syn_adj_norm);
@@ -3636,12 +4065,14 @@ def main() -> None:
         dict(name="pge_fwd", route="cuda", source=src + "pge_kernels.cuh",
              replaces="graphslim_tpu/kernels/pallas_pge.py:74",
              launches=launches["pge_fwd"] + cond["pge_fwd"]
-             + dist["pge_fwd"] + ind["pge_fwd"] + atk["pge_fwd"],
+             + dist["pge_fwd"] + ind["pge_fwd"] + atk["pge_fwd"]
+             + ana["pge_fwd"],
              library_ms=None, **stats["pge_fwd"]),
         dict(name="pge_bwd", route="cuda", source=src + "pge_kernels.cuh",
              replaces="graphslim_tpu/kernels/pallas_pge.py:165",
              launches=launches["pge_bwd"] + cond["pge_bwd"]
-             + dist["pge_bwd"] + ind["pge_bwd"] + atk["pge_bwd"],
+             + dist["pge_bwd"] + ind["pge_bwd"] + atk["pge_bwd"]
+             + ana["pge_bwd"],
              library_ms=None, **stats["pge_bwd"]),
         # timed at the hidden width, where the coreset path spends most
         dict(name="spmm_blocked", route="cuda",
@@ -3650,14 +4081,15 @@ def main() -> None:
              launches=core["spmm_blocked"] + cond["spmm_blocked"]
              + clus["spmm_blocked"] + dist["spmm_blocked"]
              + ind["spmm_blocked"] + coarse["spmm_blocked"]
-             + zoo["spmm_blocked"] + atk["spmm_blocked"],
+             + zoo["spmm_blocked"] + atk["spmm_blocked"]
+             + ana["spmm_blocked"],
              **stats["spmm_blocked_d256"]),
         dict(name="smem_gather", route="cuda",
              source=src + "smem_gather.cu",
              replaces="benchmark/probe_spmm.py:82",
              launches=core["smem_gather"] + dist["smem_gather"]
              + ind["smem_gather"] + zoo["smem_gather"]
-             + atk["smem_gather"],
+             + atk["smem_gather"] + ana["smem_gather"],
              **stats["smem_gather"]),
     ]
     for k in kernels:

@@ -135,10 +135,14 @@ class Args:
     eval_epochs: int = 300
     eval_model: str = "GCN"
     resume: bool = False    # resume condensation from its last train state
-    # --- not ported yet (raise when asked for) --------------------------
+    # --- profiling and tracking -----------------------------------------
+    profile: bool = False   # torch.profiler trace of reduce()
+    wandb: bool = False     # WandB tracking (NullTracker without wandb)
+    wandb_project: str = "graphslim_tpu"
+    wandb_run_name: Optional[str] = None
+    wandb_required: bool = False
+    # --- not ported yet (raises when asked for) -------------------------
     dist_devices: int = 0
-    profile: bool = False
-    wandb: bool = False
     # --- derived (filled by finalize) -----------------------------------
     metric: str = "accuracy"
     checkpoints: tuple = ()

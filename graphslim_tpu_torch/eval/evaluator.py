@@ -11,7 +11,9 @@ card, the blocked SpMM; the JAX package takes its ELL layout there), GAT
 through the ELL layout its edge softmax reads.  Inductive ones validate
 and test on the val and test subgraphs, every row, through their
 normalized adjacencies cached on the dataset (``Dataset.split_batch``;
-GAT takes the segment path on them).
+GAT takes the segment path on them).  ``nas_evaluate`` (the validation
+metric NAS ranks by) and ``tsne_vis`` are ported; ``enable_distributed``
+is not yet.
 """
 
 from __future__ import annotations
@@ -211,10 +213,72 @@ class Evaluator:
                 out[mt] = (float("nan"), float("nan"))
         return out
 
-    def tsne_vis(self, *args, **kwargs):
-        raise NotImplementedError("Evaluator.tsne_vis is not ported yet "
-                                  "(ROADMAP.md, queue 1, item 13)")
+    def enable_distributed(self, *args, **kwargs):
+        raise NotImplementedError("Evaluator.enable_distributed needs dist/ "
+                                  "(ROADMAP.md, queue 1, item 14), which "
+                                  "is not ported yet")
 
-    def nas_evaluate(self, *args, **kwargs):
-        raise NotImplementedError("Evaluator.nas_evaluate is not ported yet "
-                                  "(ROADMAP.md, queue 1, item 13)")
+    def tsne_vis(self, reduced: G.Reduced, out_path: str,
+                 max_real: int = 2000) -> str:
+        """t-SNE of real train vs synthetic features, one PNG (reference
+        ``eval_agent.py:404-494``): at most ``max_real`` real rows, drawn
+        by ``default_rng(0)`` as in the JAX package."""
+        import os
+
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        from sklearn.manifold import TSNE
+
+        d = self.data
+        if d.setting == "ind":
+            feat_tr, y_tr = d.feat_train, d.labels_train
+        else:
+            idx = torch.as_tensor(d.idx_train, device=d.device)
+            feat_tr, y_tr = d.feat[idx], d.labels[idx]
+        feat_tr, y_tr = feat_tr.cpu().numpy(), y_tr.cpu().numpy()
+        if feat_tr.shape[0] > max_real:
+            sel = np.random.default_rng(0).choice(
+                feat_tr.shape[0], max_real, replace=False)
+            feat_tr, y_tr = feat_tr[sel], y_tr[sel]
+        feat_syn = reduced.feat.detach().cpu().numpy()
+        y_syn = reduced.labels.detach().cpu().numpy()
+        if y_syn.ndim == 2:
+            y_syn = y_syn.argmax(1)
+        all_data = np.concatenate([feat_tr, feat_syn])
+        perplexity = min(30, max(all_data.shape[0] // 4, 2))
+        pts = TSNE(n_components=2, random_state=0,
+                   perplexity=perplexity).fit_transform(all_data)
+        n_r = feat_tr.shape[0]
+        fig, ax = plt.subplots(figsize=(6, 5))
+        ax.scatter(pts[:n_r, 0], pts[:n_r, 1], c=y_tr, cmap="tab10",
+                   s=8, alpha=0.4, label="real")
+        ax.scatter(pts[n_r:, 0], pts[n_r:, 1], c=y_syn, cmap="tab10",
+                   s=60, marker="*", edgecolors="black", label="syn")
+        ax.legend()
+        os.makedirs(os.path.dirname(os.path.abspath(out_path)),
+                    exist_ok=True)
+        fig.savefig(out_path, dpi=120, bbox_inches="tight")
+        plt.close(fig)
+        return out_path
+
+    def nas_evaluate(self, reduced: G.Reduced, model, runs: int = 1,
+                     seed: int = 0) -> float:
+        """Mean best validation metric of ``model`` (an APPNP) trained on
+        the reduced graph, ``runs`` seeds one after another (reference
+        ``eval_agent.py:352-402``); each run's initial parameters through
+        :meth:`init_params`."""
+        a = self.args
+        tx, tadj, ty = self._train_tuple(reduced, "APPNP")
+        val = self._split_tuple("val", "APPNP")
+        cfg = M.TrainConfig(epochs=a.eval_epochs, lr=a.lr or 0.01,
+                            weight_decay=5e-4, metric=a.metric)
+        gen = make_generator(seed, self.data.device)
+        vals = []
+        for r in range(runs):
+            params0 = self.init_params("APPNP", model, r, gen)
+            _, best_val, _ = M.fit_with_val(
+                model, gen, train=(tx, tadj, ty, None), val=val, cfg=cfg,
+                params0=params0)
+            vals.append(best_val)
+        return float(torch.stack(vals).mean())

@@ -26,6 +26,14 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def host_array(x) -> np.ndarray:
+    """``x`` on the host: a tensor detached and copied back, anything
+    else through ``np.asarray``."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
 def seed_everything(seed: int) -> torch.Generator:
     """Seed host RNGs and return a CPU ``torch.Generator``."""
     random.seed(seed)

@@ -75,11 +75,12 @@ def test_entry_points_default_to_the_card():
                                     "msgc", "mirage", "gecc", "gcsntk",
                                     "simgc", "sfgc", "geom", "gdem",
                                     "attack", "LargeDataLoader",
-                                    "load_data_dir"])
+                                    "load_data_dir", "wandb", "profile",
+                                    "visualization"])
 def test_new_entry_points_default_to_the_card(method, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
-    from graphslim_tpu_torch import run_eval
+    from graphslim_tpu_torch import run_eval, visualization
     from graphslim_tpu_torch.config import Args, finalize
     from graphslim_tpu_torch.data import load
     from graphslim_tpu_torch.data.largeloader import LargeDataLoader
@@ -92,6 +93,12 @@ def test_new_entry_points_default_to_the_card(method, tmp_path):
         elif method == "attack":
             run(finalize(Args(dataset="synth-hard", attack="metattack",
                               save_path=str(tmp_path))))
+        elif method in ("wandb", "profile"):
+            run(finalize(Args(dataset="synth-hard", method="kcenter",
+                              save_path=str(tmp_path), **{method: True})))
+        elif method == "visualization":
+            visualization.main(["-D", "synth-hard", "-M", "kcenter",
+                                "--save_path", str(tmp_path)])
         elif method == "LargeDataLoader":
             LargeDataLoader(load("synth-hard"))
         elif method == "load_data_dir":
@@ -106,8 +113,8 @@ def _tiny_builders():
     import numpy as np
     import scipy.sparse as sp
 
+    from graphslim_tpu_torch import compat, convert
     from graphslim_tpu_torch import graph as G
-    from graphslim_tpu_torch import convert
     from graphslim_tpu_torch.kernels.spmm_blocked import build_blocked
 
     ei = np.array([[0, 1, 2], [1, 2, 0]])
@@ -126,6 +133,10 @@ def _tiny_builders():
              "bn1": [], "P": np.ones((2, 2))}),
         "build_blocked": lambda: build_blocked(host.indptr, host.col,
                                                host.val),
+        "from_torch": lambda: compat.from_torch(
+            torch.ones(3, 2), torch.as_tensor(ei), torch.zeros(3)),
+        "load_reference_reduced": lambda: compat.load_reference_reduced(
+            str(REPO), "gcond", "cora", 0.5),
     }
 
 
@@ -134,7 +145,8 @@ def _tiny_builders():
                                   "pge_params_from_jax",
                                   "model_params_from_jax",
                                   "ignr_params_from_jax",
-                                  "build_blocked"])
+                                  "build_blocked", "from_torch",
+                                  "load_reference_reduced"])
 def test_tensor_builders_default_to_the_card(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
@@ -152,14 +164,32 @@ def test_cli_rejects_options_nothing_reads(flag, tmp_path):
         get_args(["--save_path", str(tmp_path), flag, "1"])
 
 
-def test_unported_names_raise_with_their_roadmap_item():
+def test_unported_names_raise_with_their_roadmap_item(tmp_path):
+    from graphslim_tpu_torch.config import Args, finalize
     from graphslim_tpu_torch.eval import Evaluator
+    from graphslim_tpu_torch.train_all import run
 
-    evaluator = Evaluator(None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        evaluator.tsne_vis(None, "tsne.png")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        evaluator.nas_evaluate(None, None)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
+        Evaluator(None, None).enable_distributed(None)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
+        run(finalize(Args(dataset="synth-small", dist_devices=2,
+                          save_path=str(tmp_path), device="cpu")))
+
+
+@pytest.mark.parametrize("flag", ["wandb", "profile"])
+def test_wandb_and_profile_now_run(flag, tmp_path, monkeypatch):
+    import math
+
+    from graphslim_tpu_torch.config import Args, finalize
+    from graphslim_tpu_torch.train_all import run
+
+    monkeypatch.setitem(sys.modules, "wandb", None)
+    mean, std = run(finalize(Args(dataset="synth-small", method="kcenter",
+                                  run_eval=1, eval_epochs=5,
+                                  save_path=str(tmp_path), device="cpu",
+                                  **{flag: True}),
+                             {"run_eval", "eval_epochs", flag}))
+    assert math.isfinite(mean) and math.isfinite(std)
 
 
 def _jax_reducer_names():

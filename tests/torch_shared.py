@@ -94,3 +94,45 @@ def first_level_costs(module, agent, W, B) -> np.ndarray:
             mock.patch.object(module, "_greedy_matching", matching):
         agent.contract_sets(W, B, 0.5)
     return seen["costs"]
+
+
+def dataset_pair(name: str, seed: int = 0) -> tuple:
+    """The same twin loaded by both packages: (JAX dataset, port dataset
+    on the CPU)."""
+    from graphslim_tpu.data import load as jload
+    from graphslim_tpu_torch.data import load
+
+    return jload(name, seed=seed), load(name, seed=seed, device="cpu")
+
+
+def reduced_pair(jds, kind: str, n: int = 60, onehot: bool = False) -> tuple:
+    """The same reduced triple in both packages (JAX ``Reduced``, port
+    ``Reduced`` on the CPU): the first ``n`` rows of the graph reducers
+    consume, with their induced subgraph as a ``SparseAdj`` (``kind``
+    "sparse"), dense ("dense") or no adjacency ("none"), and labels as
+    class ids or one-hot rows."""
+    import jax.numpy as jnp
+
+    from graphslim_tpu import graph as JG
+    from graphslim_tpu_torch import graph as G
+
+    feat, adj, labels = jds.train_graph()
+    rows = np.arange(n)
+    jsub = JG.submatrix(adj, rows)
+    f = np.asarray(feat)[rows]
+    y = np.asarray(labels)[rows].astype(np.int64)
+    if onehot:
+        y = np.eye(int(jds.nclass), dtype=np.float32)[y]
+    if kind == "sparse":
+        ja = jsub
+        ta = G.from_edge_index(JG.to_edge_index(jsub), n,
+                               edge_weight=np.asarray(jsub.values_or_ones()),
+                               dedup=False, device="cpu")
+    elif kind == "dense":
+        dense = np.asarray(jsub.to_dense())
+        ja, ta = jnp.asarray(dense), torch.as_tensor(np.array(dense))
+    else:
+        ja = ta = None
+    return (JG.Reduced(feat=jnp.asarray(f), adj=ja, labels=jnp.asarray(y)),
+            G.Reduced(feat=torch.as_tensor(f), adj=ta,
+                      labels=torch.as_tensor(y)))
