@@ -54,8 +54,9 @@ line of output each, any failed check raises (non-zero exit):
    ``torch.sparse.mm`` on the subgraphs that kcenter and cent_p selected;
 9. the other condensation methods at full width on the twin, at their
    ogbn-arxiv paper configs (``method_configs.py``) cut in depth, through
-   ``create_reducer(...).reduce()`` and the default evaluator (GCN, 3 seeds
-   × 300 epochs).  ``doscond``, ``gcondx`` and ``gcdm`` run 7 epochs with
+   ``create_reducer(...).reduce()`` and the default evaluator (GCN,
+   ``ARXIV_EVAL_SEEDS`` = 1 seed × 300 epochs, as in phases 10 and 11).
+   ``doscond``, ``gcondx`` and ``gcdm`` run 7 epochs with
    a checkpoint at epoch 1: epoch 0 warms up, epochs 1-5 give the outer
    steps/s, epoch 6 is profiled.  ``doscond``: one PGE forward keeping the
    workspace and one backward an outer step, no-grad forwards only at
@@ -69,8 +70,8 @@ line of output each, any failed check raises (non-zero exit):
    backward and ``eigvalsh`` of step 11;
 10. k-means, the clustering coarseners, VNG, MSGC, Mirage and GECC at
    full width on the twin at r = 0.01, through
-   ``create_reducer(...).reduce()`` and the default evaluator (GCN, 3
-   seeds × 300 epochs), each with its reduce and evaluate seconds, its
+   ``create_reducer(...).reduce()`` and the default evaluator (GCN, 1
+   seed × 300 epochs), each with its reduce and evaluate seconds, its
    accuracy and the blocked SpMM's launches by width: ``clustering``,
    ``clustering --agg`` (its ``Â²X``: two launches at d = 128) and
    ``averaging``; ``vng`` with a GCN at hidden 256 (the k-means's shape
@@ -89,7 +90,7 @@ line of output each, any failed check raises (non-zero exit):
    SimGC, SFGC, GEOM and GDEM at full width on the twin at r = 0.01
    (n_syn 1354, GCSNTK 1355; hidden 256, PGE nhid 256), each from a fresh
    ``save_path`` through ``create_reducer(...).reduce()`` and the default
-   evaluator (GCN, 3 seeds × 300 epochs), with reduce and evaluate
+   evaluator (GCN, 1 seed × 300 epochs), with reduce and evaluate
    seconds, peak device memory, the SpMM's launches by width and the
    accuracy (reported, not gated).  Depth is cut: ``simgc`` runs its
    600-epoch teacher, then 60 steps (both sides of the ``it % 50``
@@ -111,7 +112,9 @@ line of output each, any failed check raises (non-zero exit):
    fanouts [15, 8]) for 3 epochs with SGC on the test subgraph (3 seeds ×
    300 epochs), kcenter with GCN (pools local to the train subgraph,
    gathers on the card), then every other ported reducer once (phases
-   9-11's cuts, one GCN seed); the reddit twin (r = 0.001): GCond (n_syn
+   9-11's cuts, one GCN seed, every training of the run at
+   ``FLICKR_EVAL_EPOCHS`` = 100 epochs); the reddit twin (r = 0.001;
+   kept loaded for phase 17): GCond (n_syn
    186) for 2 of its 1000 epochs with SGC; the yelp twin: GCond (n_syn 36,
    PGE nhid 128) with GCN scored by macro F1.  Each run prints n_syn,
    reduce seconds, outer steps/s where it applies, launches by kind and
@@ -121,12 +124,13 @@ line of output each, any failed check raises (non-zero exit):
    it and read just after);
 13. edge sparsification and structural coarsening through
    ``train_all.run`` (each twin loaded once and handed to it) and the
-   default evaluator (GCN, 300 epochs), at each twin's representative
-   rate (``COARSEN_RUNS``): (a) the cora twin, all 14 methods with 1
-   seed, and heavy_edge and variation_edges with ``--coarsen_strategy
-   optimal`` (the blossom); (b) the arxiv twin, random_edge, g_spar,
-   scan, local_degree, spanning_forest and rank_degree, then heavy_edge
-   (reported, not gated); (c) the pubmed twin, t_spanner, the variation
+   default evaluator (GCN, ``COARSEN_EVAL_EPOCHS`` = 100 epochs), at
+   each twin's representative rate (``COARSEN_RUNS``): (a) the cora twin,
+   all 14 methods with 1 seed, and heavy_edge and variation_edges with
+   ``--coarsen_strategy optimal`` (the blossom); (b) the arxiv twin,
+   random_edge, g_spar, scan, local_degree, spanning_forest and
+   rank_degree, then heavy_edge (reported, not gated); (c) the pubmed
+   twin, t_spanner, the variation
    family, algebraic_jc and affinity_gs; (d) the flickr twin
    (inductive), random_edge, g_spar and heavy_edge.  Each run prints
    n_syn, the entries kept, reduce seconds with the share of the dense
@@ -144,7 +148,8 @@ line of output each, any failed check raises (non-zero exit):
 14. the model zoo: (a) ``Evaluator.train_cross`` over the eight models
    (MLP, GCN, SGC, APPNP, Cheby, GraphSage, GAT, SGFormer) on the shipped
    arxiv artifact at the evaluator's width (hidden 256, GAT 8 heads of
-   32, SGFormer 2 transformer layers; 1 seed × 300 epochs), each above
+   32, SGFormer 2 transformer layers; 1 seed × ``ZOO_EPOCHS`` = 100
+   epochs, as every training of (b) and (d)), each above
    the test split's largest-class share, with its evaluate seconds, ms an
    epoch, SpMM launches by width, peak memory and idle share; (b) APPNP's
    16-combination ``grid_search`` and its choice; (c) one GAT layer on
@@ -185,8 +190,9 @@ line of output each, any failed check raises (non-zero exit):
 16. the rest of evaluation, compat, visualization, tracking and
    profiling on the arxiv twin and the shipped artifact: (a)
    ``NasEvaluator.correlation`` over ``QUICK_SPACE`` (16 APPNP
-   architectures, 300 epochs a side), every original-graph accuracy
-   above the validation split's largest class; (b) ``mia_attack`` on an
+   architectures, ``NAS_EPOCHS`` = 100 epochs a side), every
+   original-graph accuracy above the validation split's largest class;
+   (b) ``mia_attack`` on an
    SGC and a GCN fitted on the artifact, in [0.5, 1]; (c) the artifact's
    ``PropertyEvaluator.properties``, kcenter on the cora twin (r = 0.5)
    through ``train_all.run --wandb`` and ``compare`` on it; (d)
@@ -201,7 +207,32 @@ line of output each, any failed check raises (non-zero exit):
    network), so both tracked runs must fall back to ``NullTracker`` with
    its warning and log the reduced graph's stored entries.  Then the
    blocked SpMM at the widths the phase launched that no earlier phase
-   holds (the cora twin's Â).
+   holds (the cora twin's Â);
+17. the distributed layer (``graphslim_tpu_torch/dist``) at world size 1
+   (the machine has one card; the multi-rank paths are held on the CPU by
+   ``tests/test_torch_dist.py``): (a) the edge-cut order and the ragged
+   halo tables of the arxiv twin's Â at 4 and 8 shards, built twice
+   (equal), with host seconds, the parts' balance, the cut and the
+   exchanged halo rows; (b) every shard's products in this one process at
+   d = 128 and 40 through the port's ``RankPlan``: its receive buffer
+   filled from the owners' send buffers (the gather kernel) as the rounds
+   deliver them, then ``RankPlan.product``, the interior (square) and
+   boundary (rectangular) blocked SpMMs that ``shard_spmm_halo_ragged``
+   runs, the shards stacked and permuted
+   back against the one-card blocked SpMM, its plain version and float64,
+   each shard's ms beside its bound; (c) GCond on the arxiv twin (n_syn
+   1354, hidden 256, PGE nhid 256, 2 epochs × 20 outer steps) with its
+   matching sharded over a mesh of one rank on NCCL
+   (``enable_distributed(1)``), features replicated and sharded: the first
+   match loss against the unsharded engine's from the same draws (1e-5
+   relative), the PGE launch rule, outer steps/s beside phase 4's; (d) the
+   evaluator's mesh path (``Evaluator.enable_distributed``): SGC on the
+   arxiv artifact (3 seeds × 300 epochs, ≥ 0.80), one GCN fit, and the
+   reddit twin's gcondx artifact with its val and test subgraphs sharded
+   (SGC, 3 seeds, ≥ 0.9569, the random coreset's), each within two test
+   nodes of the local evaluation, with seconds and SpMM launches by
+   width.  Launches of (c) and (d) are counted from 0; the process group
+   is destroyed at the end.
 
 Every profiled window goes through ``profiled`` on
 ``graphslim_tpu_torch.profiling.session``, which fails when the window
@@ -209,13 +240,14 @@ recorded no device time and logs a window whose trace lacks entries of a
 port kernel that its launch counter saw.
 
 Phases 6 and 7 run before phase 4.  The line before the last is the
-``kernels`` JSON (launches: phases 4 and 8 to 16);
+``kernels`` JSON (launches: phases 4 and 8 to 17);
 the last line is ``{"ok": true, "device": {...}}``.  ``--only kernels``
 stops after the kernel comparisons (phases 2, 3, 6, 7); ``--only
 condense`` runs phase 9 alone (after the build), ``--only cluster`` phase
 10, ``--only distill`` phase 11, ``--only ind`` phase 12, ``--only
 coarsen`` phase 13, ``--only zoo`` phase 14, ``--only attack`` phase
-15 and ``--only analysis`` phase 16, and none of them prints a result.
+15, ``--only analysis`` phase 16 and ``--only dist`` phase 17, and none
+of them prints a result.
 Without a CUDA card, or outside a checkout, it exits non-zero and prints
 no result.
 """
@@ -822,7 +854,7 @@ def run_gcond(K, SB, ds, save_path: str) -> tuple:
         f"pge_fwd {pge['pge_fwd']:.1f} ms, pge_bwd {pge['pge_bwd']:.1f} ms "
         f"({(pge['pge_fwd'] + pge['pge_bwd']) / busy:.3f} of busy); top: "
         + "; ".join(f"{k[:48]} {v:.1f} ms" for k, v in top))
-    return red, launches
+    return red, launches, sps
 
 
 # ---------------------------------------------------------------------------
@@ -1313,16 +1345,23 @@ TIMED = 5
 EPOCHS = TIMED + 2
 
 
+# the evaluation seeds of phases 9-11: 3 cut to 1 (the first seed's
+# training, repeated twice more with other draws) to keep the whole smoke
+# inside its time limit (PERF.md §6)
+ARXIV_EVAL_SEEDS = 1
+
+
 def condense_args(method: str, save_path: str, epochs: int,
                   checkpoints: tuple, **kw):
     """The method's ogbn-arxiv paper config (``method_configs.py``), cut
     in depth only: ``epochs`` epochs, one quick training at each
-    checkpoint; evaluation 3 seeds × 300 epochs."""
+    checkpoint; evaluation ``ARXIV_EVAL_SEEDS`` seed × 300 epochs."""
     from graphslim_tpu_torch.config import Args, finalize
 
     args = finalize(Args(dataset="ogbn-arxiv", method=method,
                          init="random", epochs=epochs, save_path=save_path,
-                         run_inter_eval=1, run_eval=3, eval_epochs=300,
+                         run_inter_eval=1, run_eval=ARXIV_EVAL_SEEDS,
+                         eval_epochs=300,
                          device="cuda", **kw),
                     explicit={"epochs", "run_inter_eval", "run_eval",
                               "eval_epochs", *kw})
@@ -1403,8 +1442,8 @@ def run_condensers(K, SB, ds, tmp: str) -> dict:
         f"device busy {busy:.2f} ms (idle share estimated as 1 - busy / "
         f"mean wall of the timed epochs: {1 - busy / wall:.3f}), pge_fwd "
         f"{fwd:.2f} ms, pge_bwd {bwd:.2f} ms, the rest "
-        f"{busy - fwd - bwd:.2f} ms; evaluate GCN 3 seeds x 300 "
-        f"epochs {acc:.4f} ± {std:.4f} ({t_eval:.1f} s)")
+        f"{busy - fwd - bwd:.2f} ms; evaluate GCN {args.run_eval} seed(s) "
+        f"x 300 epochs {acc:.4f} ± {std:.4f} ({t_eval:.1f} s)")
 
     # the resume, from the state saved at the checkpoint (epoch 1 done)
     with np.load(eng.state_path()) as blob:
@@ -1546,12 +1585,14 @@ def run_condensers(K, SB, ds, tmp: str) -> dict:
 
 def cluster_args(method: str, save_path: str, **kw):
     """The method's ogbn-arxiv config (``method_configs.py``, where it has
-    one) at r = 0.01; evaluation 3 seeds × 300 epochs with GCN."""
+    one) at r = 0.01; evaluation ``ARXIV_EVAL_SEEDS`` seed × 300 epochs
+    with GCN."""
     from graphslim_tpu_torch.config import Args, finalize
 
     return finalize(Args(dataset="ogbn-arxiv", method=method,
                          reduction_rate=0.01, save_path=save_path,
-                         run_eval=3, eval_epochs=300, device="cuda", **kw),
+                         run_eval=ARXIV_EVAL_SEEDS, eval_epochs=300,
+                         device="cuda", **kw),
                     explicit={"reduction_rate", "run_eval", "eval_epochs",
                               *kw})
 
@@ -1611,8 +1652,9 @@ def run_clusterers(SB, ds, tmp: str) -> dict:
             fail(f"{method}: accuracy {acc:.4f} is not above the largest "
                  f"class share {majority:.4f}")
         summary = (f"n_syn {red.feat.shape[0]}, reduce {t_red:.2f} s (SpMM "
-                   f"launches by width {w_red}), evaluate GCN 3 seeds x 300 "
-                   f"epochs {t_eval:.2f} s (SpMM launches by width "
+                   f"launches by width {w_red}), evaluate GCN "
+                   f"{args.run_eval} seed(s) x 300 epochs {t_eval:.2f} s "
+                   f"(SpMM launches by width "
                    f"{widths_since(before)}), accuracy {acc:.4f} ± "
                    f"{std:.4f}")
         return eng, red, w_red, summary
@@ -1790,13 +1832,13 @@ def compare_spmm_wide(SB, ds, stats: dict) -> None:
 def distill_args(method: str, save_path: str, checkpoints: tuple, **kw):
     """The method's ogbn-arxiv config (``method_configs.py``) at r = 0.01,
     cut in depth by ``kw``; one quick training at each checkpoint;
-    evaluation 3 seeds × 300 epochs with GCN."""
+    evaluation ``ARXIV_EVAL_SEEDS`` seed × 300 epochs with GCN."""
     from graphslim_tpu_torch.config import Args, finalize
 
     args = finalize(Args(dataset="ogbn-arxiv", method=method,
                          reduction_rate=0.01, save_path=save_path,
-                         run_inter_eval=1, run_eval=3, eval_epochs=300,
-                         device="cuda", **kw),
+                         run_inter_eval=1, run_eval=ARXIV_EVAL_SEEDS,
+                         eval_epochs=300, device="cuda", **kw),
                     explicit={"reduction_rate", "run_inter_eval", "run_eval",
                               "eval_epochs", *kw})
     return args.replace(checkpoints=checkpoints)
@@ -1889,8 +1931,9 @@ def run_distillers(K, SB, SG, ds, tmp: str, stats: dict) -> dict:
             fail(f"{method}: accuracy {acc} ± {std}")
         summary = (f"n_syn {red.feat.shape[0]}, reduce {t_red:.2f} s (SpMM "
                    f"launches by width {w_red}), peak device memory "
-                   f"{peak:.2f} GiB, evaluate GCN 3 seeds x 300 epochs "
-                   f"{t_eval:.2f} s (SpMM {widths_since(before)}), accuracy "
+                   f"{peak:.2f} GiB, evaluate GCN {args.run_eval} seed(s) x "
+                   f"300 epochs {t_eval:.2f} s (SpMM {widths_since(before)}), "
+                   f"accuracy "
                    f"{acc:.4f} ± {std:.4f} (reported, not gated)")
         return eng, red, args, timers, t_start, w_red, summary
 
@@ -2174,16 +2217,16 @@ def compare_spmm_ind(SB, ds, stats: dict) -> None:
 
 
 def ind_args(name: str, method: str, save_path: str, run_eval: int,
-             checkpoints: tuple = (), **kw):
+             checkpoints: tuple = (), eval_epochs: int = 300, **kw):
     """The method's paper config for the twin (``method_configs.py``) at
     the twin's representative rate, cut in depth by ``kw``; one quick
-    training at each checkpoint; evaluation ``run_eval`` seeds × 300
-    epochs."""
+    training at each checkpoint; evaluation ``run_eval`` seeds ×
+    ``eval_epochs``."""
     from graphslim_tpu_torch.config import Args, finalize
 
     args = finalize(Args(dataset=name, method=method, save_path=save_path,
                          run_inter_eval=1, run_eval=run_eval,
-                         eval_epochs=300, device="cuda", **kw),
+                         eval_epochs=eval_epochs, device="cuda", **kw),
                     explicit={"run_inter_eval", "run_eval", "eval_epochs",
                               *kw})
     if args.setting != "ind":
@@ -2326,6 +2369,12 @@ FLICKR_RUNS = [
 ]
 
 
+# the epochs of every training those runs make (the coresets' and VNG's
+# GCN, SimGC's teacher, the checkpoint's and the final evaluation): 300
+# cut to 100 to keep the whole smoke inside its time limit (PERF.md §6)
+FLICKR_EVAL_EPOCHS = 100
+
+
 def expert_cut(args) -> dict:
     """SFGC's and GEOM's buffer cut to 2 experts of 40 epochs, the expert,
     start and curriculum epochs scaled alike (phase 11's rule)."""
@@ -2343,7 +2392,7 @@ def expert_cut(args) -> dict:
     return cut
 
 
-def run_ind(K, SB, SG, tmp: str, stats: dict) -> dict:
+def run_ind(K, SB, SG, tmp: str, stats: dict, keep=None) -> dict:
     """Phase 12: the inductive setting at full width.  Each twin's train
     subgraph first holds the blocked SpMM at the phase's widths
     (``compare_spmm_ind``).  flickr: GCond at its paper config (3 epochs)
@@ -2351,7 +2400,9 @@ def run_ind(K, SB, SG, tmp: str, stats: dict) -> dict:
     other ported reducer once at cut depth; reddit: GCond (2 of its 1000
     epochs) with SGC evaluation; yelp: GCond with GCN evaluation scored by
     macro F1.  Every run's launches are counted from 0 (``Launches``);
-    returns each kernel's launches over the phase's runs."""
+    returns each kernel's launches over the phase's runs.  With ``keep``
+    (a dict) the reddit twin stays loaded in ``keep["reddit"]`` for phase
+    17."""
     import numpy as np
     import torch
 
@@ -2386,14 +2437,15 @@ def run_ind(K, SB, SG, tmp: str, stats: dict) -> dict:
     add(ev_l)
     log(line)
 
-    def reduce_once(method, cut, hook, run_eval=1):
+    def reduce_once(method, cut, hook, run_eval=1, epochs=300):
         save = os.path.join(tmp, "flickr", method + ("_agg" if cut.get("agg")
                                                     else ""))
         base = ind_args("flickr", method, save, run_eval)
         if method in ("sfgc", "geom"):
             cut = dict(cut, **expert_cut(base))
         ckpt = (cut["epochs"] - 1,) if "epochs" in cut else ()
-        args = ind_args("flickr", method, save, run_eval, ckpt, **cut)
+        args = ind_args("flickr", method, save, run_eval, ckpt,
+                        eval_epochs=epochs, **cut)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2462,8 +2514,8 @@ def run_ind(K, SB, SG, tmp: str, stats: dict) -> dict:
             f"{red.feat.shape[0]}, reduce {t_red:.2f} s, {rate}, launches "
             f"{launches}, peak {peak:.2f} GiB, {how}: busy {busy:.1f} ms, "
             f"idle share {idle:.3f}; evaluate GCN {args.run_eval} seed(s) "
-            f"x 300 epochs {t_eval:.2f} s (launches {ev}), accuracy "
-            f"{acc:.4f}")
+            f"x {args.eval_epochs} epochs {t_eval:.2f} s (launches {ev}), "
+            f"accuracy {acc:.4f}")
 
     # kcenter: a GCN fit on the train subgraph, gathers on local pools
     eng, red, line = reduce_once("kcenter", {}, None, run_eval=3)
@@ -2476,7 +2528,8 @@ def run_ind(K, SB, SG, tmp: str, stats: dict) -> dict:
         f"{float(eng.embed_model[3]):.4f}")
     del eng, red
     for method, cut, hook in FLICKR_RUNS:
-        eng, red, line = reduce_once(method, cut, hook)
+        eng, red, line = reduce_once(method, cut, hook,
+                                     epochs=FLICKR_EVAL_EPOCHS)
         log(line)
         del eng, red
     peak_flickr = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2493,6 +2546,8 @@ def run_ind(K, SB, SG, tmp: str, stats: dict) -> dict:
     add(ev_l)
     log(line + f"; peak device memory of the reddit twin's phase "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    if keep is not None:
+        keep["reddit"] = reddit
     del reddit
     torch.cuda.empty_cache()
 
@@ -2544,6 +2599,10 @@ COARSEN_RUNS = (
     + [("flickr", m, {}, 1, True)
        for m in ("random_edge", "g_spar", "heavy_edge")])
 
+
+# the epochs of every evaluation of the phase: the default evaluator's 300
+# cut to 100 to keep the whole smoke inside its time limit (PERF.md §6)
+COARSEN_EVAL_EPOCHS = 100
 
 # the reduced graphs the blocked SpMM is held on after the runs, at the
 # widths their evaluation launched, beside the pubmed coarse graph with
@@ -2609,7 +2668,8 @@ def compare_spmm_reduced(SB, G, tag: str, raw, widths, stats: dict,
 def run_coarsen(SB, G, arxiv, tmp: str, stats: dict) -> dict:
     """Phase 13: the seven edge sparsifiers and the seven structural
     coarseners through ``train_all.run`` (the twin loaded once, handed to
-    it) and the default evaluator (GCN, 300 epochs), ``COARSEN_RUNS``.
+    it) and the default evaluator (GCN, ``COARSEN_EVAL_EPOCHS`` epochs),
+    ``COARSEN_RUNS``.
     Each run's SpMM launches are counted from 0; returns the phase's."""
     import numpy as np
     import torch
@@ -2706,7 +2766,7 @@ def run_coarsen(SB, G, arxiv, tmp: str, stats: dict) -> dict:
     held = [None] * len(HELD)
     for name, method, flags, seeds, gate in COARSEN_RUNS:
         args = finalize(Args(dataset=name, method=method, seed=0,
-                             run_eval=seeds, eval_epochs=300,
+                             run_eval=seeds, eval_epochs=COARSEN_EVAL_EPOCHS,
                              save_path=os.path.join(tmp, name),
                              device="cuda", **flags),
                         explicit={"seed", "run_eval", "eval_epochs",
@@ -2749,7 +2809,8 @@ def run_coarsen(SB, G, arxiv, tmp: str, stats: dict) -> dict:
             f"{t_red:.2f} s (dense eigh on the card: {len(dense)} call(s), "
             f"{sum(dense):.3f} s = {sum(dense) / t_red:.3f} of it; ARPACK "
             f"{len(arpack)} call(s), {sum(arpack):.2f} s); evaluate GCN "
-            f"{seeds} seed(s) x 300 epochs {seen['evaluate']:.2f} s, "
+            f"{seeds} seed(s) x {args.eval_epochs} epochs "
+            f"{seen['evaluate']:.2f} s, "
             f"accuracy {acc:.4f} ± {std:.4f} "
             f"({'gated' if gate else 'not gated'}); SpMM "
             f"launches by width: evaluation {w_eval}, reduce "
@@ -2796,6 +2857,9 @@ GAT_HEADS, GAT_HID = 8, 256
 
 
 IDLE_EPOCHS = 20     # the profiled fit that gives a model's idle share
+# the epochs of every training of (a), (b) and (d): the evaluator's 300
+# cut to 100 to keep the whole smoke inside its time limit (PERF.md §6)
+ZOO_EPOCHS = 100
 
 
 def profiled_busy(fn) -> tuple:
@@ -2811,7 +2875,7 @@ def zoo_evaluator(SB, SG, rows: list, totals: dict, widths_seen: set):
     gathers (counted from 0 and read just after it), peak GiB and, unless
     ``profile`` is off, the idle share: 1 − device busy / wall of a
     profiled ``IDLE_EPOCHS``-epoch fit on the same inputs, run after the
-    counts are read (a trace of all 300 epochs takes longer to parse than
+    counts are read (a trace of all its epochs takes longer to parse than
     the evaluation takes to run).  Every width it launched the SpMM at
     goes into ``widths_seen``."""
     import dataclasses
@@ -3028,8 +3092,8 @@ def run_gat_ell(ds, stats: dict) -> None:
 def run_zoo(SB, SG, G, ds, tmp: str, stats: dict) -> dict:
     """Phase 14: (a) ``train_cross`` over the eight models on the shipped
     arxiv artifact (hidden 256, GAT 8 heads x 32, SGFormer 2 transformer
-    layers; 300 epochs, 1 seed); (b) APPNP's 16-combination
-    ``grid_search``; (c) GAT on the arxiv twin's ELL (``run_gat_ell``);
+    layers; ``ZOO_EPOCHS`` epochs, 1 seed); (b) APPNP's 16-combination
+    ``grid_search`` at the same depth; (c) GAT on the arxiv twin's ELL (``run_gat_ell``);
     (d) ``random`` on the flickr twin at its rate, then ``train_cross``
     over the eight; then the blocked SpMM at the (graph, width) pairs the
     phase launched (``ZOO_HELD``).  Returns the phase's launches."""
@@ -3048,7 +3112,7 @@ def run_zoo(SB, SG, G, ds, tmp: str, stats: dict) -> dict:
 
     # --- (a) ---------------------------------------------------------------
     args = finalize(Args(dataset="ogbn-arxiv", method="gcond", run_eval=1,
-                         eval_epochs=300, device="cuda"),
+                         eval_epochs=ZOO_EPOCHS, device="cuda"),
                     explicit={"run_eval", "eval_epochs"})
     art = read_npz(os.path.join(HERE, "benchmark", "artifacts",
                                 "arxiv_gcond_r0.01.npz"), device="cuda")
@@ -3087,7 +3151,8 @@ def run_zoo(SB, SG, G, ds, tmp: str, stats: dict) -> dict:
     # --- (d) ---------------------------------------------------------------
     rows.clear()
     flickr, _ = load_ind_twin("flickr")
-    fargs = ind_args("flickr", "random", os.path.join(tmp, "flickr"), 1)
+    fargs = ind_args("flickr", "random", os.path.join(tmp, "flickr"), 1,
+                     eval_epochs=ZOO_EPOCHS)
     SB.reset_launches()
     SG.reset_launches()
     t0 = time.perf_counter()
@@ -3535,6 +3600,9 @@ def run_attack(K, SB, SG, G, arxiv, tmp: str, stats: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 ARTIFACT = os.path.join("benchmark", "artifacts", "arxiv_gcond_r0.01.npz")
+# the depth of NAS's trainings: 300 epochs (the evaluator's) cut to 100 to
+# keep the whole smoke inside its time limit (PERF.md §6)
+NAS_EPOCHS = 100
 # the arxiv Â's widths that phases 7 and 14 hold
 ARXIV_HELD = {128, 256, 40, 129, 64, 192} | set(ZOO_HELD["arxiv"])
 PROFILED_KERNELS = ("pge_fwd_kernel", "pge_bwd_kernel", "spmm_blocked_kernel")
@@ -3598,7 +3666,8 @@ def run_analysis(K, SB, SG, G, ds, tmp: str, stats: dict) -> dict:
     majority = float(np.bincount(val_labels).max() / val_labels.shape[0])
 
     # --- (a) NAS over the quick space --------------------------------------
-    nas = NasEvaluator(ds, args, space=QUICK_SPACE)
+    nas = NasEvaluator(ds, args.replace(eval_epochs=NAS_EPOCHS),
+                       space=QUICK_SPACE)
     secs, accs = {}, {}
     for side in ("ori", "syn"):
         fn = getattr(nas, f"evaluate_{side}")
@@ -3622,8 +3691,8 @@ def run_analysis(K, SB, SG, G, ds, tmp: str, stats: dict) -> dict:
              f"above the validation split's largest class {majority:.4f}")
     if not np.isfinite(accs["syn"]).all():
         fail(f"NAS: reduced-graph accuracies {accs['syn']}")
-    log(f"analysis (a) NAS over QUICK_SPACE (16 APPNP architectures, 300 "
-        f"epochs each, a side): original graph {secs['ori']:.2f} s "
+    log(f"analysis (a) NAS over QUICK_SPACE (16 APPNP architectures, "
+        f"{NAS_EPOCHS} epochs each, a side): original graph {secs['ori']:.2f} s "
         f"(accuracies {np.round(ori, 4).tolist()}, all above the val "
         f"split's largest class {majority:.4f}), artifact "
         f"{secs['syn']:.2f} s (accuracies "
@@ -3891,11 +3960,288 @@ def run_analysis(K, SB, SG, G, ds, tmp: str, stats: dict) -> dict:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the distributed layer at world size 1
+# ---------------------------------------------------------------------------
+
+DIST_SHARDS = (4, 8)
+DIST_WIDTHS = (128, 40)
+REDDIT_ART = os.path.join("benchmark", "artifacts",
+                          "reddit_dist_gcondx_r0.001.npz")
+REDDIT_FLOOR = 0.9569    # the random coreset's SGC accuracy on the twin
+
+
+def dist_tables(G, adj, stats: dict) -> dict:
+    """(a): the edge-cut order and the ragged halo tables of the arxiv
+    twin's Â at each shard count, built twice (equal), timed on the host,
+    with the parts' balance, the cut and the exchanged halo rows."""
+    import numpy as np
+
+    from graphslim_tpu_torch import native
+    from graphslim_tpu_torch.dist import spmm as D
+
+    h = G.host_of(adj)
+    n, nnz = h.n_rows, h.row.shape[0]
+    t0 = time.perf_counter()
+    native.load()
+    log(f"dist (a) native host library (g++ at first use, "
+        f"build/native/): {time.perf_counter() - t0:.2f} s")
+    out = {}
+    for S in DIST_SHARDS:
+        t0 = time.perf_counter()
+        order = D.edge_cut_order(h, S)
+        t_order = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hp = D.partition_rows_halo_ragged(D.reorder_adj(h, order), S)
+        t_tables = time.perf_counter() - t0
+        # the second build, from the partitioner's own output (its part
+        # ids and cut give the balance and the cut share)
+        part, cut = native.partition_graph(h.indptr, h.col, S, 0.02, 10)
+        again_order = np.argsort(part, kind="stable")
+        again = D.partition_rows_halo_ragged(D.reorder_adj(h, again_order),
+                                             S)
+        if not np.array_equal(order, again_order):
+            fail(f"dist (a) S={S}: two builds give different orders")
+        for f in ("send_flat", "in_offsets", "send_sizes", "row_int",
+                  "col_int", "val_int", "row_bnd", "col_bnd", "val_bnd"):
+            if not np.array_equal(getattr(hp, f), getattr(again, f)):
+                fail(f"dist (a) S={S}: two builds differ in {f}")
+        sizes = np.bincount(part, minlength=S)
+        halo = int(hp.send_sizes.sum())
+        log(f"dist (a) arxiv Â S={S}: edge-cut order {t_order:.2f} s, "
+            f"reorder + ragged tables {t_tables:.2f} s (host); parts "
+            f"{sizes.min()}-{sizes.max()} rows (largest / mean "
+            f"{sizes.max() * S / n:.4f}); cut {cut} of {nnz} entries "
+            f"({cut / nnz:.4f}); exchanged halo rows {halo} "
+            f"({halo / n:.4f} of n); interior entries "
+            f"{int(hp.n_int.sum())}, boundary {int(hp.n_bnd.sum())}; "
+            f"receive buffer {hp.recv_len} rows, rounds {hp.round_max}")
+        stats[f"dist_tables_s{S}"] = t_order + t_tables
+        out[S] = (order, hp)
+    return out
+
+
+def dist_products(SB, adj, tables: dict, stats: dict) -> None:
+    """(b): every shard's products on the card in one process, through the
+    port's ``RankPlan``: each owner's send buffer (``send_rows``, the
+    gather kernel) placed in the receive buffer round by round as the
+    exchange delivers it (``rounds``), then ``product``, the interior
+    (square) and boundary (rectangular) blocked SpMMs that
+    ``shard_spmm_halo_ragged`` runs; the shards stacked and permuted back,
+    against the one-card blocked SpMM over Â, its plain version and
+    float64 (phase 7's tolerances); each shard's ms beside its bound."""
+    import numpy as np
+    import torch
+
+    from graphslim_tpu_torch.dist import spmm as D
+    from graphslim_tpu_torch.kernels.spmm import spmm_plain
+
+    n = adj.n_rows
+    layout = adj.blocked()
+    vals = adj.values_or_ones().double()
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    bad: list = []
+    for d in DIST_WIDTHS:
+        x = torch.randn(n, d, generator=gen, device="cuda")
+        one = SB.spmm_blocked(layout, x)
+        plain = SB.spmm_blocked_plain(layout, x)
+        f64 = spmm_plain(adj.row, adj.col, vals, x.double(), n)
+        for S, (order, hp) in tables.items():
+            rows_per = hp.base.rows_per_shard
+            xo = x[torch.as_tensor(order, device="cuda")]
+            xo = torch.cat([xo, xo.new_zeros((S * rows_per - n, d))])
+            blocks = [xo[s * rows_per:(s + 1) * rows_per] for s in range(S)]
+            plans = [D.rank_plan(hp, s, torch.device("cuda"))
+                     for s in range(S)]
+            # what each rank sends (the gather kernel), then what the
+            # rounds deliver: in round r, rank src's chunk for
+            # (src + r) mod S lands at that rank's round-r offset
+            sends = [p.send_rows(b) for p, b in zip(plans, blocks)]
+            outs, times = [], []
+            for s, plan in enumerate(plans):
+                recv = plan.new_recv(d, False, xo)
+                for r, (_, _, src, (lo, hi)) in enumerate(plan.rounds()):
+                    dst, (so, se), _, _ = plans[src].rounds()[r]
+                    if dst != s or se - so != hi - lo:
+                        fail(f"dist (b) S={S}: round {r + 1} of shard {src} "
+                             f"does not feed shard {s}")
+                    recv[lo:hi] = sends[src][so:se]
+
+                def shard(s=s, plan=plan, recv=recv):
+                    return plan.product(blocks[s], recv, False)
+
+                outs.append(shard())
+                ms = median_ms(shard, 10, 1)
+                b_int = spmm_bound(plan.interior.nnz, rows_per, rows_per,
+                                   d)[0]
+                b_bnd = spmm_bound(plan.n_bnd, rows_per, hp.recv_len,
+                                   d)[0] if plan.n_bnd else 0.0
+                times.append((ms, b_int + b_bnd, plan.interior.nnz,
+                              plan.n_bnd))
+            got = torch.cat(outs)[torch.as_tensor(
+                np.argsort(order), device="cuda")]
+            tag = f"dist (b) S={S} d={d}"
+            err = check_close(f"{tag} vs one card", got, one, TOL_SPMM, bad,
+                              f64)
+            check_close(f"{tag} vs plain", got, plain, TOL_SPMM, bad, f64)
+            check_close(f"{tag} vs float64", got.double(), f64, TOL_SPMM,
+                        bad)
+            log(f"{tag}: max|Δ| vs one card {err:.2e}; shards (ms / bound "
+                f"ms, interior / boundary entries): " + "; ".join(
+                    f"{ms:.4f} / {b:.4f} ({ni} / {nb})"
+                    for ms, b, ni, nb in times))
+            stats[f"dist_b_s{S}_d{d}"] = times
+            del xo, blocks, sends, outs, got
+        del x, one, plain, f64
+        torch.cuda.empty_cache()
+    if bad:
+        fail("sharded products disagree:\n  " + "\n  ".join(bad))
+
+
+def dist_gcond(K, SB, SG, ds, tmp: str, totals: dict,
+               phase4_sps) -> None:
+    """(c): GCond on the arxiv twin with the matching sharded over a mesh
+    of one rank (NCCL), both feature modes: the first outer step's loss
+    against the unsharded engine's from the same generator state; one
+    PGE forward keeping the workspace and one backward an outer step."""
+    import torch
+
+    from graphslim_tpu_torch import utils
+    from graphslim_tpu_torch.config import Args, finalize
+    from graphslim_tpu_torch.reduce import create_reducer
+
+    for mode in ("replicated", "sharded"):
+        args = finalize(Args(dataset="ogbn-arxiv", method="gcond",
+                             init="random", epochs=2, save_path=tmp,
+                             device="cuda"), explicit={"epochs"})
+        args = args.replace(checkpoints=())
+        eng = create_reducer("gcond", ds, args)
+        if (eng.n_syn, args.hidden, eng.pge.cfg.nhid) != (1354, 256, 256):
+            fail("dist (c): not the full width")
+        feat = eng.init_feat_syn().requires_grad_(True)
+        pge = utils.trainable(eng.pge.init(utils.make_generator(1, "cuda")))
+        mp = eng.model.init(utils.make_generator(2, "cuda"))
+        losses = []
+        for shard in (False, True):
+            if shard:
+                eng.enable_distributed(1, feature_mode=mode)
+            with torch.no_grad():
+                adj = eng.syn_adj_norm(pge, feat)
+                losses.append(float(eng.match_loss_total(
+                    mp, feat, adj, utils.make_generator(7, "cuda"))))
+        rel = abs(losses[1] - losses[0]) / abs(losses[0])
+        if not rel <= 1e-5:
+            fail(f"dist (c) {mode}: sharded loss {losses[1]} vs unsharded "
+                 f"{losses[0]} ({rel:.2e} relative)")
+        timer = EpochTimer(eng, K, SB)
+        red, secs, launches, widths = counted(
+            K, SB, SG, totals, lambda: eng.reduce(ds))
+        outer = args.epochs * args.outer_loop
+        # no-grad forwards: every outer step's inner_adj and the end's
+        # inference_adj (no checkpoint)
+        pge_rule(dict(K.LAUNCHES), outer, outer + 1)
+        if not torch.isfinite(red.feat).all():
+            fail(f"dist (c) {mode}: non-finite condensed features")
+        sps = args.outer_loop / timer.seconds[1]
+        log(f"dist (c) gcond arxiv, matching sharded over 1 rank (NCCL), "
+            f"features {mode}: first loss {losses[1]:.6f} (unsharded "
+            f"{losses[0]:.6f}, {rel:.1e} relative); {outer} outer steps "
+            f"in {secs:.2f} s, {sps:.3f} outer steps/s (epoch 1; phase 4 "
+            + (f"{phase4_sps:.3f})" if phase4_sps else "not run)")
+            + f"; launches {launches}, SpMM by width {widths}")
+        del eng, red
+        torch.cuda.empty_cache()
+
+
+def dist_evaluator(K, SB, SG, G, ds, totals: dict, reddit=None) -> None:
+    """(d): the evaluator's mesh path at world size 1 against the local
+    one: SGC on the arxiv artifact (3 seeds × 300 epochs; ≥ 0.80), one
+    GCN fit (validation in the loop), and the reddit gcondx artifact on
+    the reddit twin with its val and test subgraphs sharded (SGC, 3
+    seeds; ≥ the random coreset's 0.9569); each within two test nodes of
+    the local result.  ``reddit``: the twin phase 12 loaded, else it is
+    loaded here."""
+    import torch
+
+    from graphslim_tpu_torch.config import Args, finalize
+    from graphslim_tpu_torch.data import read_npz
+    from graphslim_tpu_torch.dist import make_mesh
+    from graphslim_tpu_torch.eval import Evaluator
+
+    mesh = make_mesh(1, device="cuda")
+    runs = [("arxiv", ds, os.path.join(HERE, ARTIFACT), "SGC", 3, 0.80),
+            ("arxiv", ds, os.path.join(HERE, ARTIFACT), "GCN", 1, None)]
+    if reddit is None:
+        reddit, _ = load_ind_twin("reddit")
+    runs.append(("reddit", reddit, os.path.join(HERE, REDDIT_ART), "SGC",
+                 3, REDDIT_FLOOR))
+    for name, data, path, mt, seeds, floor in runs:
+        args = finalize(Args(dataset=data.name, method="gcond",
+                             run_eval=seeds, eval_epochs=300,
+                             device="cuda"),
+                        explicit={"run_eval", "eval_epochs"})
+        art = read_npz(path, device="cuda")
+        t0 = time.perf_counter()
+        (acc0, _), _ = Evaluator(data, args).evaluate(art, mt)
+        t_local = time.perf_counter() - t0
+        ev = Evaluator(data, args)
+        t0 = time.perf_counter()
+        ev.enable_distributed(mesh)
+        t_part = time.perf_counter() - t0
+        ((acc, std), _), secs, launches, widths = counted(
+            K, SB, SG, totals, lambda: ev.evaluate(art, mt))
+        n_test = (data.labels_test.shape[0] if data.setting == "ind"
+                  else len(data.idx_test))
+        if sorted(ev._dist) != ["test", "val"]:
+            fail(f"dist (d) {name}: sharded splits {sorted(ev._dist)}")
+        if not abs(acc - acc0) <= 2.0 / n_test + 1e-6:
+            fail(f"dist (d) {name} {mt}: mesh {acc:.4f} vs local "
+                 f"{acc0:.4f}")
+        if floor is not None and not acc >= floor:
+            fail(f"dist (d) {name} {mt}: {acc:.4f} < {floor}")
+        log(f"dist (d) {name} {mt} {seeds} seed(s) x 300 epochs on the "
+            f"mesh of 1: {acc:.4f} ± {std:.4f} (local {acc0:.4f}, "
+            f"{t_local:.2f} s); partition {t_part:.2f} s, evaluate "
+            f"{secs:.2f} s; launches {launches}, SpMM by width {widths}")
+        del ev, art
+        torch.cuda.empty_cache()
+    del reddit
+    torch.cuda.empty_cache()
+
+
+def run_dist(K, SB, SG, G, ds, tmp: str, stats: dict,
+             phase4_sps=None, reddit=None) -> dict:
+    """Phase 17 → its launches on the main path ((c) and (d)); ``reddit``
+    is the twin phase 12 kept loaded, if it ran."""
+    import torch
+
+    import torch.distributed as tdist
+
+    t0 = time.perf_counter()
+    totals = {"pge_fwd": 0, "pge_bwd": 0, "spmm_blocked": 0,
+              "smem_gather": 0}
+    try:
+        adj = ds.adj_norm()
+        tables = dist_tables(G, adj, stats)
+        dist_products(SB, adj, tables, stats)
+        del tables
+        dist_gcond(K, SB, SG, ds, tmp, totals, phase4_sps)
+        dist_evaluator(K, SB, SG, G, ds, totals, reddit)
+        reddit = None
+    finally:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+    torch.cuda.synchronize()
+    log(f"dist: phase 17 {time.perf_counter() - t0:.1f} s; launches "
+        f"(c) + (d) {totals}")
+    return totals
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=["kernels", "condense", "cluster",
                                        "distill", "ind", "coarsen", "zoo",
-                                       "attack", "analysis"],
+                                       "attack", "analysis", "dist"],
                     default=None)
     opts = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "graphslim_tpu_torch")):
@@ -3921,6 +4267,16 @@ def main() -> None:
     log(smi)
     log(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
         f"{torch.cuda.device_count()} card(s)")
+    t_start = time.perf_counter()
+    t_last = [t_start]
+
+    def lap(name: str) -> None:
+        """One line of wall seconds a part of the full run, and so far."""
+        now = time.perf_counter()
+        log(f"wall: {name} {now - t_last[0]:.1f} s, smoke so far "
+            f"{now - t_start:.1f} s")
+        t_last[0] = now
+
     t0 = time.perf_counter()
     B.prebuild()
     build_s = time.perf_counter() - t0
@@ -3947,9 +4303,11 @@ def main() -> None:
     log(f"load ogbn-arxiv twin: {ds.n_nodes} nodes, {ds.adj.nnz} edges, "
         f"{time.perf_counter() - t0:.1f} s")
     if opts.only in ("condense", "cluster", "distill", "coarsen", "zoo",
-                     "attack", "analysis"):
+                     "attack", "analysis", "dist"):
         with tempfile.TemporaryDirectory() as tmp:
-            if opts.only == "analysis":
+            if opts.only == "dist":
+                run_dist(K, SB, SG, G, ds, tmp, {})
+            elif opts.only == "analysis":
                 run_analysis(K, SB, SG, G, ds, tmp, {})
             elif opts.only == "attack":
                 run_attack(K, SB, SG, G, ds, tmp, {})
@@ -3967,6 +4325,7 @@ def main() -> None:
         return
 
     # --- phases 2-3 ------------------------------------------------------
+    lap("build and the arxiv twin's load")
     stats: dict = {}
     compare_kernels(K, stats)
 
@@ -3982,10 +4341,11 @@ def main() -> None:
             del twin
             torch.cuda.empty_cache()
         return
+    lap("phases 2, 3, 6, 7")
 
     # --- phase 4 ---------------------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
-        red, launches = run_gcond(K, SB, ds, tmp)
+        red, launches, gcond_sps = run_gcond(K, SB, ds, tmp)
         saved = os.path.join(tmp, "reduced_graph", "gcond",
                              "ogbn-arxiv_0.01_1.npz")
         if not os.path.exists(saved):
@@ -4009,53 +4369,71 @@ def main() -> None:
     log(f"eval SGC 3 seeds x 300 epochs: artifact {acc:.4f} ± {std:.4f} "
         f"({t_eval:.1f} s; JAX package 0.8142 ± 0.0001), fresh 3-epoch "
         f"GCond graph {acc_new:.4f} ± {std_new:.4f}")
+    lap("phases 4, 5")
 
     # --- phase 8 ---------------------------------------------------------
     del ev, art, red
     torch.cuda.empty_cache()
     core, subgraphs = run_coresets(SB, SG, G)
     compare_spmm_subgraphs(SB, G, subgraphs)
+    lap("phase 8")
 
     # --- phase 9 ---------------------------------------------------------
     del subgraphs
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         cond = run_condensers(K, SB, ds, tmp)
+    lap("phase 9")
 
     # --- phase 10 --------------------------------------------------------
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         clus = run_clusterers(SB, ds, tmp)
+    lap("phase 10")
 
     # --- phase 11 --------------------------------------------------------
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         dist = run_distillers(K, SB, SG, ds, tmp, stats)
+    lap("phase 11")
 
     # --- phase 12 --------------------------------------------------------
     torch.cuda.empty_cache()
+    kept: dict = {}
     with tempfile.TemporaryDirectory() as tmp:
-        ind = run_ind(K, SB, SG, tmp, stats)
+        ind = run_ind(K, SB, SG, tmp, stats, kept)
+    lap("phase 12")
 
     # --- phase 13 --------------------------------------------------------
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         coarse = run_coarsen(SB, G, ds, tmp, stats)
+    lap("phase 13")
 
     # --- phase 14 --------------------------------------------------------
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         zoo = run_zoo(SB, SG, G, ds, tmp, stats)
+    lap("phase 14")
 
     # --- phase 15 --------------------------------------------------------
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         atk = run_attack(K, SB, SG, G, ds, tmp, stats)
+    lap("phase 15")
 
     # --- phase 16 --------------------------------------------------------
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         ana = run_analysis(K, SB, SG, G, ds, tmp, stats)
+    lap("phase 16")
+
+    # --- phase 17 --------------------------------------------------------
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        distp = run_dist(K, SB, SG, G, ds, tmp, stats, gcond_sps,
+                         kept.pop("reddit"))
+    lap("phase 17")
     log_windows()
 
     src = "graphslim_tpu_torch/csrc/"
@@ -4066,13 +4444,13 @@ def main() -> None:
              replaces="graphslim_tpu/kernels/pallas_pge.py:74",
              launches=launches["pge_fwd"] + cond["pge_fwd"]
              + dist["pge_fwd"] + ind["pge_fwd"] + atk["pge_fwd"]
-             + ana["pge_fwd"],
+             + ana["pge_fwd"] + distp["pge_fwd"],
              library_ms=None, **stats["pge_fwd"]),
         dict(name="pge_bwd", route="cuda", source=src + "pge_kernels.cuh",
              replaces="graphslim_tpu/kernels/pallas_pge.py:165",
              launches=launches["pge_bwd"] + cond["pge_bwd"]
              + dist["pge_bwd"] + ind["pge_bwd"] + atk["pge_bwd"]
-             + ana["pge_bwd"],
+             + ana["pge_bwd"] + distp["pge_bwd"],
              library_ms=None, **stats["pge_bwd"]),
         # timed at the hidden width, where the coreset path spends most
         dict(name="spmm_blocked", route="cuda",
@@ -4082,14 +4460,15 @@ def main() -> None:
              + clus["spmm_blocked"] + dist["spmm_blocked"]
              + ind["spmm_blocked"] + coarse["spmm_blocked"]
              + zoo["spmm_blocked"] + atk["spmm_blocked"]
-             + ana["spmm_blocked"],
+             + ana["spmm_blocked"] + distp["spmm_blocked"],
              **stats["spmm_blocked_d256"]),
         dict(name="smem_gather", route="cuda",
              source=src + "smem_gather.cu",
              replaces="benchmark/probe_spmm.py:82",
              launches=core["smem_gather"] + dist["smem_gather"]
              + ind["smem_gather"] + zoo["smem_gather"]
-             + atk["smem_gather"] + ana["smem_gather"],
+             + atk["smem_gather"] + ana["smem_gather"]
+             + distp["smem_gather"],
              **stats["smem_gather"]),
     ]
     for k in kernels:

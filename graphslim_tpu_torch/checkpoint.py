@@ -24,7 +24,7 @@ import zipfile
 import numpy as np
 import torch
 
-from graphslim_tpu_torch.utils import tree_leaves
+from graphslim_tpu_torch.utils import is_writer, tree_leaves
 
 log = logging.getLogger("graphslim_tpu_torch")
 
@@ -37,7 +37,10 @@ def _host(leaf) -> np.ndarray:
 
 def save_state(path: str, state, epoch: int) -> None:
     """Write ``state`` (a tree of tensors, ints and ``None``) and the
-    epoch to resume from."""
+    epoch to resume from (rank 0 of a distributed run writes; the others
+    return)."""
+    if not is_writer():
+        return
     leaves = tree_leaves(state)
     payload = {f"leaf_{i}": _host(x) for i, x in enumerate(leaves)
                if x is not None}

@@ -242,7 +242,12 @@ def get_args(argv: Optional[list[str]] = None) -> Args:
 
 
 def _setup_logging(args: Args) -> None:
-    """File logger under ``{save_path}/logs/{method}/``."""
+    """File logger under ``{save_path}/logs/{method}/`` (rank 0 of a
+    distributed run only)."""
+    from graphslim_tpu_torch.utils import is_writer
+
+    if not is_writer():
+        return
     log_dir = os.path.join(args.save_path, "logs", args.method)
     os.makedirs(log_dir, exist_ok=True)
     handler = logging.FileHandler(

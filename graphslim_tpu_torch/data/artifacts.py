@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from graphslim_tpu_torch import graph as G
+from graphslim_tpu_torch.utils import is_writer
 
 
 def _triple_path(save_path: str, method: str, dataset: str, r: float,
@@ -37,6 +38,8 @@ def save_reduced(reduced: G.Reduced, save_path: str, method: str,
                  dataset: str, r: float, seed: int,
                  attack: Optional[str] = None) -> str:
     path = _triple_path(save_path, method, dataset, r, seed, attack)
+    if not is_writer():   # one writer: rank 0 of a distributed run
+        return path
     os.makedirs(os.path.dirname(path), exist_ok=True)
     # labels keep their own dtype: hard labels are integers, soft labels
     # (GCSNTK's, GEOM's) float [n_syn, nclass] rows

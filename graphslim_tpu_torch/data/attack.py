@@ -68,33 +68,43 @@ def attack(data: G.Dataset, args) -> G.Dataset:
     the cache when there (else computed and cached), with the attacked
     GCN accuracy logged."""
     path = _cache_path(args, data)
-    host, feat = None, data.feat
-    if os.path.exists(path):
+    made = utils.build_once(path, lambda: _attack_and_cache(data, args,
+                                                            path))
+    if made is not None:
+        host, feat = made
+    else:
+        host, feat = None, data.feat
         with np.load(path) as blob:
             if args.attack != "random_feat":
                 host = G.host_from_edge_index(blob["edge_index"],
                                               data.n_nodes, dedup=True)
             if "feat" in blob:
                 feat = torch.as_tensor(blob["feat"], device=data.device)
-    else:
-        if args.attack == "random_adj":
-            host = _random_adj(data, args)
-        elif args.attack == "random_feat":
-            feat = _random_feat(data, args)
-        elif args.attack in ("metattack", "prbcd"):
-            host = prbcd_attack(data, args, block_size=args.prbcd_block,
-                                epochs=args.prbcd_epochs,
-                                fine_tune_epochs=args.prbcd_fine_tune)
-        else:
-            raise ValueError(f"unknown attack {args.attack!r}")
-        payload = {"edge_index": G.to_edge_index(data.adj) if host is None
-                   else np.stack([host.row, host.col])}
-        if args.attack == "random_feat":
-            payload["feat"] = feat.cpu().numpy()
-        np.savez_compressed(path, **payload)
     attacked = attacked_dataset(data, host, feat)
     _report_attacked_acc(attacked, args)
     return attacked
+
+
+def _attack_and_cache(data: G.Dataset, args, path: str) -> tuple:
+    """(host mirror or None, features) of the attacked graph, written to
+    the cache ``path``."""
+    host, feat = None, data.feat
+    if args.attack == "random_adj":
+        host = _random_adj(data, args)
+    elif args.attack == "random_feat":
+        feat = _random_feat(data, args)
+    elif args.attack in ("metattack", "prbcd"):
+        host = prbcd_attack(data, args, block_size=args.prbcd_block,
+                            epochs=args.prbcd_epochs,
+                            fine_tune_epochs=args.prbcd_fine_tune)
+    else:
+        raise ValueError(f"unknown attack {args.attack!r}")
+    payload = {"edge_index": G.to_edge_index(data.adj) if host is None
+               else np.stack([host.row, host.col])}
+    if args.attack == "random_feat":
+        payload["feat"] = feat.cpu().numpy()
+    utils.save_npz(path, **payload)
+    return host, feat
 
 
 def attacked_dataset(data: G.Dataset, host, feat: torch.Tensor

@@ -12,8 +12,19 @@ through the ELL layout its edge softmax reads.  Inductive ones validate
 and test on the val and test subgraphs, every row, through their
 normalized adjacencies cached on the dataset (``Dataset.split_batch``;
 GAT takes the segment path on them).  ``nas_evaluate`` (the validation
-metric NAS ranks by) and ``tsne_vis`` are ported; ``enable_distributed``
-is not yet.
+metric NAS ranks by) and ``tsne_vis`` are ported.
+
+``enable_distributed(mesh)`` is the opt-in mesh path: the validation and
+test forwards run node-sharded over the mesh's ranks through the ragged
+halo SpMM (``dist.spmm.DistAdj``) in the padded partition domain, each
+rank on its block of rows; on an inductive dataset each validation and
+test subgraph gets its own edge-cut partition (subgraphs under ``2·S``
+rows stay local).  The picked output rows are summed over the ranks
+(``ShardedRows``), so every rank computes the same metric, picks the
+same epoch and takes the same branches.  GAT (its edge softmax reads the
+ELL layout or the segment path) and SGFormer (its global attention sums
+over every row, which no rank's block holds) stay local.  The reduced
+training graph stays local everywhere: it is small by construction.
 """
 
 from __future__ import annotations
@@ -33,6 +44,9 @@ from graphslim_tpu_torch.models.hoist import hoist_batch, hoist_plan
 from graphslim_tpu_torch.utils import make_generator
 
 log = logging.getLogger("graphslim_tpu_torch")
+
+# models whose validation and test forwards stay local on the mesh path
+LOCAL_MODELS = ("GAT", "SGFormer")
 
 
 def _dense_to_sparse(adj: torch.Tensor) -> G.SparseAdj:
@@ -75,6 +89,9 @@ class Evaluator:
     def __init__(self, data: G.Dataset, args):
         self.data = data
         self.args = args
+        # split → (features' block, padded view, labels, row picker) of
+        # the mesh path
+        self._dist: dict = {}
 
     def _eval_model(self, model_type: str, nfeat: int):
         a = self.args
@@ -107,7 +124,10 @@ class Evaluator:
 
     def _split_tuple(self, split: str, model_type: str):
         """``(x, adj, y, idx)`` of the val or test split; a transductive
-        GAT reads the full graph's ELL layout."""
+        GAT reads the full graph's ELL layout; on the mesh path every model
+        but GAT and SGFormer takes the split's sharded tuple."""
+        if split in self._dist and model_type not in LOCAL_MODELS:
+            return self._dist[split]
         batch = self.data.split_batch(split)
         if model_type == "GAT" and self.data.setting != "ind":
             return (batch[0], self.data.adj_norm_ell()) + batch[2:]
@@ -213,10 +233,38 @@ class Evaluator:
                 out[mt] = (float("nan"), float("nan"))
         return out
 
-    def enable_distributed(self, *args, **kwargs):
-        raise NotImplementedError("Evaluator.enable_distributed needs dist/ "
-                                  "(ROADMAP.md, queue 1, item 14), which "
-                                  "is not ported yet")
+    def enable_distributed(self, mesh, axis: str = "data") -> None:
+        """Opt-in mesh path for the validation and test forwards (see the
+        module's docstring): the full graph's normalized adjacency, or each
+        inductive subgraph's, partitioned over ``mesh`` once here, the
+        features permuted and padded into this rank's block once, the
+        split's rows mapped once."""
+        from graphslim_tpu_torch.dist.mesh import axis_size
+        from graphslim_tpu_torch.dist.spmm import build_dist_adj
+
+        d = self.data
+        self._dist = {}
+        if d.setting == "ind":
+            min_n = 2 * axis_size(mesh, axis)
+            for split in ("val", "test"):
+                host = d.view_norm_host(split)
+                if host.n_rows < min_n or host.row.shape[0] == 0:
+                    continue
+                da = build_dist_adj(host, mesh, axis=axis)
+                feat = getattr(d, f"feat_{split}")
+                self._dist[split] = (
+                    da.pad_features(feat), da.padded_view(),
+                    getattr(d, f"labels_{split}"),
+                    da.remap_idx(np.arange(feat.shape[0])))
+            return
+        da = build_dist_adj(d.adj_norm_host(), mesh, axis=axis)
+        feat = da.pad_features(d.feat)
+        for split in ("val", "test"):
+            idx = np.asarray(getattr(d, f"idx_{split}"))
+            self._dist[split] = (
+                feat, da.padded_view(),
+                d.labels[torch.as_tensor(idx, device=d.device)],
+                da.remap_idx(idx))
 
     def tsne_vis(self, reduced: G.Reduced, out_path: str,
                  max_real: int = 2000) -> str:

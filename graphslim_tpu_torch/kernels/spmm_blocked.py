@@ -101,7 +101,8 @@ class BlockedCOO:
     blk_dst: torch.Tensor     # [n_blocks] destination tile
     blk_src: torch.Tensor     # [n_blocks] source tile, -1 = direct block
     tile_ptr: torch.Tensor    # [n_tiles + 1] first block of a dst tile
-    n_rows: int               # the matrix is square
+    n_rows: int
+    n_cols: int               # rows of x (n_rows for a square matrix)
     td: int
     ts: int
     chunk: int
@@ -130,17 +131,22 @@ class BlockedCOO:
 
 def build_blocked(indptr, col, val, td: Optional[int] = None, ts: int = TS,
                   chunk: int = CHUNK, stage_min: Optional[int] = None,
-                  device=None) -> BlockedCOO:
-    """Host-side layout build from the CSR arrays of a square matrix (rows
-    sorted), moved once to ``device`` (the CUDA card unless the caller says
-    otherwise).  ``val=None`` means ones.  ``td=None`` takes ``TD`` rows a
-    destination tile, fewer for a matrix too small to fill the card with
-    tiles of that size (a coreset's subgraph)."""
+                  device=None, n_cols: Optional[int] = None) -> BlockedCOO:
+    """Host-side layout build from the CSR arrays of an ``[n, n_cols]``
+    matrix (rows sorted; ``n_cols=None``: square), moved once to ``device``
+    (the CUDA card unless the caller says otherwise).  ``val=None`` means
+    ones.  ``td=None`` takes ``TD`` rows a destination tile, fewer for a
+    matrix too small to fill the card with tiles of that size (a coreset's
+    subgraph).  A rectangular matrix is a shard's boundary product in the
+    distributed layer: its columns index a receive buffer."""
     t0 = time.perf_counter()
     indptr = np.asarray(indptr, dtype=np.int64)
     col = np.asarray(col, dtype=np.int64)
     n = indptr.shape[0] - 1
+    n_cols = n if n_cols is None else int(n_cols)
     nnz = col.shape[0]
+    if nnz and not (0 <= int(col.min()) and int(col.max()) < n_cols):
+        raise ValueError(f"a column index lies outside [0, {n_cols})")
     if td is None:
         td = TD
         while td > TD_MIN and -(-n // td) < MIN_TILES:
@@ -155,7 +161,7 @@ def build_blocked(indptr, col, val, td: Optional[int] = None, ts: int = TS,
     dt = row // td
     st = col // ts
     n_tiles = -(-n // td)
-    n_st = -(-n // ts) + 1
+    n_st = -(-n_cols // ts) + 1
     # entries per (dst_tile, src_tile) run; sparse runs become direct (-1)
     _, inv, counts = np.unique(dt * n_st + st, return_inverse=True,
                                return_counts=True)
@@ -195,7 +201,7 @@ def build_blocked(indptr, col, val, td: Optional[int] = None, ts: int = TS,
         dst_local=i32(dst_local), src_local=i32(src_local),
         val=torch.as_tensor(values, device=dev), bounds=i32(bounds),
         blk_ptr=i32(blk_ptr), blk_dst=i32(blk_dst), blk_src=i32(blk_src),
-        tile_ptr=i32(tile_ptr), n_rows=n, td=td, ts=ts,
+        tile_ptr=i32(tile_ptr), n_rows=n, n_cols=n_cols, td=td, ts=ts,
         chunk=chunk, n_staged=int((blk_src >= 0).sum()),
         fill=1.0 if nnz else 0.0,
         build_seconds=time.perf_counter() - t0)
@@ -261,9 +267,9 @@ def _check(layout: BlockedCOO, x: torch.Tensor) -> None:
             "(ROADMAP.md §3)")
     if x.dtype != torch.float32:
         raise ValueError(f"x must be float32, got {x.dtype}")
-    if x.ndim != 2 or x.shape[0] != layout.n_rows:
+    if x.ndim != 2 or x.shape[0] != layout.n_cols:
         raise ValueError(f"x has shape {tuple(x.shape)}, expected "
-                         f"({layout.n_rows}, d)")
+                         f"({layout.n_cols}, d)")
     if x.device != layout.device:
         raise ValueError(f"x is on {x.device}, the layout on "
                          f"{layout.device}")
@@ -322,7 +328,7 @@ def spmm_blocked_cuda(layout: BlockedCOO, x: torch.Tensor) -> torch.Tensor:
         layout.tile_ptr.data_ptr(), layout.blk_ptr.data_ptr(),
         layout.blk_src.data_ptr(), layout.bounds.data_ptr(),
         layout.src_local.data_ptr(), layout.val.data_ptr(), x.data_ptr(),
-        out.data_ptr(), layout.n_rows, layout.n_rows, d, layout.td,
+        out.data_ptr(), layout.n_rows, layout.n_cols, d, layout.td,
         layout.ts, layout.tile_ptr.shape[0] - 1, smem, int(vec),
         plan["slab"], plan["lpr"], plan["nv"],
         torch.cuda.current_stream(x.device).cuda_stream)

@@ -13,7 +13,14 @@ Counterpart of ``graphslim_tpu/models/base.py``.  ``aggregate`` takes:
   ``[..., B·n, nclass]``, as the JAX package flattens its output;
 * :class:`graphslim_tpu_torch.kernels.sample.BlockSample` — the
   contiguous-slot weighted reshape-sum of sampled neighbourhoods;
+* any other object with a ``matmul`` method — that method (duck-typed, as
+  in the JAX package: the distributed layer's ``DistAdj`` and its padded
+  view, whose products run on this rank's block of rows);
 * ``None`` — identity (structure-free methods).
+
+:func:`select_rows` picks output rows at an index tensor, or through an
+index object's ``take_rows`` (the distributed layer's picker of rows held
+across ranks).
 """
 
 from __future__ import annotations
@@ -40,9 +47,22 @@ def aggregate(adj: Any, x: torch.Tensor) -> torch.Tensor:
         return x
     if isinstance(adj, (G.SparseAdj, EllAdj)):
         return adj.matmul(x)
+    if not torch.is_tensor(adj) and hasattr(adj, "matmul"):
+        return adj.matmul(x)     # duck-typed (e.g. dist.DistAdj)
     if is_skeleton_batch(adj) and x.ndim == 4:
         return _skeleton_matmul(adj, x)
     return torch.matmul(adj, x)
+
+
+def select_rows(out: torch.Tensor, idx) -> torch.Tensor:
+    """Rows ``idx`` of ``out``: all for ``None``, ``idx.take_rows(out)``
+    for a picker of rows held across ranks (``dist.spmm.ShardedRows``),
+    else ``out[idx]``."""
+    if idx is None:
+        return out
+    if hasattr(idx, "take_rows"):
+        return idx.take_rows(out)
+    return out[idx]
 
 
 def _skeleton_matmul(adj: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

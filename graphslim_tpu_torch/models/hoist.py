@@ -20,7 +20,7 @@ from typing import Any
 import torch
 
 from graphslim_tpu_torch.models import nn
-from graphslim_tpu_torch.models.base import GNNModel, aggregate
+from graphslim_tpu_torch.models.base import GNNModel, aggregate, select_rows
 from graphslim_tpu_torch.models.zoo import GCN, SGC, Cheby, _between
 
 
@@ -113,7 +113,8 @@ def hoist_batch(batch: tuple, hops: int, keep_adj: bool) -> tuple:
     """Pre-propagate one (x, adj, y, idx) tuple for a hoisted model.  When
     the adjacency is not kept, rows are independent, so the batch is cut
     to its ``idx`` rows here (exact, and the epoch loop then touches only
-    those rows)."""
+    those rows; on the distributed layer's blocks every rank then holds
+    all of them, :func:`select_rows`)."""
     x, adj, y, idx = batch
     if isinstance(hops, tuple):
         # the identity adjacency: every T_k(I) X is X
@@ -124,5 +125,5 @@ def hoist_batch(batch: tuple, hops: int, keep_adj: bool) -> tuple:
     if keep_adj:
         return x_pre, adj, y, idx
     if idx is not None:
-        x_pre, idx = x_pre[idx], None
+        x_pre, idx = select_rows(x_pre, idx), None
     return x_pre, None, y, idx

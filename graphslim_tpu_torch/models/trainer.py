@@ -21,7 +21,7 @@ import torch
 
 from graphslim_tpu_torch import graph as G
 from graphslim_tpu_torch import utils
-from graphslim_tpu_torch.models.base import GNNModel
+from graphslim_tpu_torch.models.base import GNNModel, select_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,10 +56,6 @@ def _loss(cfg: TrainConfig, log_probs: torch.Tensor,
     return utils.nll_loss(log_probs, y)
 
 
-def _select_rows(out: torch.Tensor, idx) -> torch.Tensor:
-    return out if idx is None else out[idx]
-
-
 def fit_with_val(model: GNNModel, gen: torch.Generator, *, train: tuple,
                  val: tuple, cfg: TrainConfig,
                  params0: Optional[dict] = None):
@@ -84,7 +80,7 @@ def fit_with_val(model: GNNModel, gen: torch.Generator, *, train: tuple,
         lr_t = cfg.lr * 0.1 if (i >= half and cfg.lr > 1e-3) else cfg.lr
         with torch.enable_grad():
             out = model.apply(params, tx, tadj, training=True, gen=gen)
-            loss = _loss(cfg, _select_rows(out, tidx), ty)
+            loss = _loss(cfg, select_rows(out, tidx), ty)
             # a leaf the forward never reads (SGFormer's ``g_bn``) takes
             # a zero gradient, as under jax.grad
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -92,7 +88,7 @@ def fit_with_val(model: GNNModel, gen: torch.Generator, *, train: tuple,
                      for g, p in zip(grads, leaves)]
         opt.step(leaves, grads, state, lr=lr_t)
         with torch.no_grad():
-            val_out = _select_rows(model.apply(params, vx, vadj), vidx)
+            val_out = select_rows(model.apply(params, vx, vadj), vidx)
             acc = metric(val_out, vy)
             better = acc > best_acc
             best_acc = torch.where(better, acc, best_acc)
@@ -119,5 +115,5 @@ def fit_multi_seed(model: GNNModel, gens: list, *, train: tuple,
 def evaluate(model: GNNModel, params: dict, x, adj_norm: Any, y,
              idx=None, metric: str = "accuracy") -> torch.Tensor:
     """Metric of model predictions on (x, adj) at rows ``idx``."""
-    out = _select_rows(model.apply(params, x, adj_norm), idx)
+    out = select_rows(model.apply(params, x, adj_norm), idx)
     return utils.metric_fn(metric, model.cfg.nclass)(out, y)

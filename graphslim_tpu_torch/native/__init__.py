@@ -5,8 +5,10 @@ The source beside this file is compiled with ``g++`` at first use into
 (``CXXFLAGS``) and the target ``-march=native`` resolves to on this host,
 so an edited source or another host's CPU gets a build of its own.  A
 failed build raises with the compiler's output: no op has a Python
-fallback.  Bound here are the ops the structural reducers call: the
-greedy t-spanner, the greedy matching and the exact blossom matching.
+fallback.  Bound here are the ops the structural reducers call (the
+greedy t-spanner, the greedy matching and the exact blossom matching), the
+edge-cut partitioner of the distributed layer, and the sort-and-dedup and
+connected components the JAX package binds beside them.
 """
 
 from __future__ import annotations
@@ -79,6 +81,15 @@ def load() -> ctypes.CDLL:
     lib.max_weight_matching.restype = ctypes.c_int64
     lib.max_weight_matching.argtypes = [i64p, i64p, i64p, ctypes.c_int64,
                                         ctypes.c_int64, i64p]
+    lib.csr_sort_dedup.restype = ctypes.c_int64
+    lib.csr_sort_dedup.argtypes = [i64p, i64p, f64p, ctypes.c_int64]
+    lib.connected_components.restype = ctypes.c_int64
+    lib.connected_components.argtypes = [i64p, i64p, ctypes.c_int64,
+                                         ctypes.c_int64, i64p]
+    lib.partition_graph.restype = ctypes.c_int64
+    lib.partition_graph.argtypes = [i64p, i64p, ctypes.c_int64,
+                                    ctypes.c_int64, ctypes.c_double,
+                                    ctypes.c_int64, i64p]
     _LIB = lib
     return lib
 
@@ -142,3 +153,43 @@ def max_weight_matching(src: np.ndarray, dst: np.ndarray,
     cnt = lib.max_weight_matching(_i64(src), _i64(dst), _i64(wi),
                                   src.shape[0], n, _i64(out))
     return out[: 2 * cnt].reshape(-1, 2)
+
+
+def csr_sort_dedup(rows: np.ndarray, cols: np.ndarray,
+                   vals: np.ndarray) -> tuple:
+    """Entries sorted by (row, col) with duplicates summed → (rows, cols,
+    vals) of the unique entries (float64 values)."""
+    lib = load()
+    rows = np.array(rows, dtype=np.int64)
+    cols = np.array(cols, dtype=np.int64)
+    vals = np.array(vals, dtype=np.float64)
+    nnz = lib.csr_sort_dedup(_i64(rows), _i64(cols), _f64(vals),
+                             rows.shape[0])
+    return rows[:nnz], cols[:nnz], vals[:nnz]
+
+
+def partition_graph(indptr: np.ndarray, col: np.ndarray, k: int,
+                    slack: float = 0.06, passes: int = 8
+                    ) -> tuple[np.ndarray, int]:
+    """Balanced ``k``-way min-edge-cut partition of a CSR graph (BFS
+    growth + FM refinement) → (part ids [n] int64, directed cut count)."""
+    lib = load()
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    col = np.ascontiguousarray(col, dtype=np.int64)
+    n = indptr.shape[0] - 1
+    part = np.empty(n, dtype=np.int64)
+    cut = lib.partition_graph(_i64(indptr), _i64(col), n, int(k),
+                              float(slack), int(passes), _i64(part))
+    return part, int(cut)
+
+
+def connected_components(src: np.ndarray, dst: np.ndarray,
+                         n: int) -> tuple[int, np.ndarray]:
+    """(component count, component id of every node [n]) of the graph
+    with edges ``src → dst`` taken as undirected."""
+    lib = load()
+    src, dst = _edges(src, dst)
+    comp = np.empty(n, dtype=np.int64)
+    n_comp = lib.connected_components(_i64(src), _i64(dst), src.shape[0], n,
+                                      _i64(comp))
+    return int(n_comp), comp

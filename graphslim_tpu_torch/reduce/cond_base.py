@@ -20,7 +20,7 @@ the hook through which SGDD adds its generator's own loss.
 from __future__ import annotations
 
 import logging
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -220,33 +220,72 @@ class CondensationBase(Reducer):
         ws = tuple(w.reshape(C, -1, w.shape[-1]) for w in block.weights)
         return ids, ws, targets, valid
 
-    def match_loss_total(self, model_params: dict, feat_syn: torch.Tensor,
-                         adj_syn_norm: torch.Tensor, gen: torch.Generator
-                         ) -> torch.Tensor:
-        """Σ_c coeff_c · match(gw_syn_c, gw_real_c), differentiable with
-        respect to ``feat_syn`` and ``adj_syn_norm``."""
-        real = self.real
-        ids, ws, targets, valid = self._sample_all_class_blocks(gen)
-        C = len(self.classes)
+    _sharded_match = None
+
+    def enable_distributed(self, n_devices: Optional[int] = None,
+                           axis: str = "data", *, mesh=None,
+                           feature_mode: str = "replicated") -> None:
+        """Shard the per-class gradient matching over a mesh of
+        ``n_devices`` ranks, or over ``mesh`` when given
+        (``dist/matching.py``): classes partition over the ranks and the
+        loss sums; ``feature_mode='sharded'`` row-shards the real features
+        too.  Opt-in via ``--dist_devices N`` under a launcher with N
+        ranks; the mesh's backend follows the dataset's device (NCCL on
+        the card, gloo on the CPU)."""
+        from graphslim_tpu_torch.dist.matching import build_sharded_match
+        from graphslim_tpu_torch.dist.mesh import axis_size, make_mesh
+
+        if mesh is None:
+            mesh = make_mesh(n_devices, axis=axis, device=self.data.device)
+        self._sharded_match = build_sharded_match(
+            self, mesh, axis=axis, feature_mode=feature_mode)
+        log.info("distributed matching over %d devices",
+                 axis_size(mesh, axis))
+
+    def match_classes(self, model_params: dict, feat_syn: torch.Tensor,
+                      adj_syn_norm, feat_deep: torch.Tensor, ids: tuple,
+                      ws: tuple, targets: torch.Tensor, valid: torch.Tensor,
+                      masks: torch.Tensor, coeffs: torch.Tensor
+                      ) -> torch.Tensor:
+        """Σ_c coeffs_c · match(gw_syn_c, gw_real_c) over the classes of
+        the leading axis of the sampled blocks (``feat_deep`` their deep
+        feature rows), differentiable with respect to ``feat_syn`` and
+        ``adj_syn_norm``."""
+        C = targets.shape[0]
         with torch.enable_grad():
             # real gradients: detached, one batched pass over the classes
             pr = _batched(model_params, C)
-            out = self.model.apply(pr, real.features[ids[0]],
+            out = self.model.apply(pr, feat_deep,
                                    BlockSample(node_ids=ids, weights=ws))
-            loss_r = masked_nll(out, real.labels_real[targets], valid)
+            loss_r = masked_nll(out, self.real.labels_real[targets], valid)
             gw_real = torch.autograd.grad(loss_r.sum(),
                                           utils.tree_leaves(pr))
             # synthetic gradients: differentiable (nested gradient)
             ps = _batched(model_params, C)
             out_s = self.model.apply(_over_skeletons(ps, adj_syn_norm),
                                      feat_syn, adj_syn_norm)
-            loss_s = masked_nll(out_s, self.labels_syn, self.class_masks)
+            loss_s = masked_nll(out_s, self.labels_syn, masks)
             gw_syn = torch.autograd.grad(loss_s.sum(),
                                          utils.tree_leaves(ps),
                                          create_graph=True)
             mls = match_loss(list(gw_syn), list(gw_real),
                              self.args.dis_metric)
-            return (self.coeffs * mls).sum()
+            return (coeffs * mls).sum()
+
+    def match_loss_total(self, model_params: dict, feat_syn: torch.Tensor,
+                         adj_syn_norm: torch.Tensor, gen: torch.Generator
+                         ) -> torch.Tensor:
+        """Σ_c coeff_c · match(gw_syn_c, gw_real_c), differentiable with
+        respect to ``feat_syn`` and ``adj_syn_norm``; with
+        :meth:`enable_distributed`, the classes shard over the mesh."""
+        if self._sharded_match is not None:
+            return self._sharded_match(model_params, feat_syn, adj_syn_norm,
+                                       gen)
+        ids, ws, targets, valid = self._sample_all_class_blocks(gen)
+        return self.match_classes(model_params, feat_syn, adj_syn_norm,
+                                  self.real.features[ids[0]], ids, ws,
+                                  targets, valid, self.class_masks,
+                                  self.coeffs)
 
     @property
     def adj_norm_full(self) -> G.SparseAdj:

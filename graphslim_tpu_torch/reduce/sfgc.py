@@ -110,19 +110,23 @@ class SFGC(CondensationBase):
         """[num_experts, snapshots, P] expert trajectories, read from the
         cache when it is there."""
         args = self.args
-        if os.path.exists(self.buf_path):
-            with np.load(self.buf_path) as f:
-                return f["traj"]
-        if args.no_buff:
+        if args.no_buff and not os.path.exists(self.buf_path):
             raise FileNotFoundError(
                 f"--no_buff set but no buffer at {self.buf_path}")
-        epochs, loss_of = self.expert_schedule(data)
-        traj = np.stack([self.trajectory(p0, epochs, loss_of).cpu().numpy()
-                         for p0 in self.expert_inits()])
-        os.makedirs(os.path.dirname(self.buf_path), exist_ok=True)
-        np.savez_compressed(self.buf_path, traj=traj)
-        log.info("%s buffer built: %s %s", type(self).__name__.lower(),
-                 self.buf_path, traj.shape)
+
+        def build() -> np.ndarray:
+            epochs, loss_of = self.expert_schedule(data)
+            traj = np.stack([self.trajectory(p0, epochs, loss_of)
+                             .cpu().numpy() for p0 in self.expert_inits()])
+            utils.save_npz(self.buf_path, traj=traj)
+            log.info("%s buffer built: %s %s", type(self).__name__.lower(),
+                     self.buf_path, traj.shape)
+            return traj
+
+        traj = utils.build_once(self.buf_path, build)
+        if traj is None:
+            with np.load(self.buf_path) as f:
+                traj = f["traj"]
         return traj
 
     # -- stage 2 --------------------------------------------------------

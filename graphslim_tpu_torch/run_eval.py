@@ -7,8 +7,10 @@ Counterpart of ``graphslim_tpu/run_eval.py``:
 ``{save_path}/reduced_graph/{method}/{dataset}_{r}_{seed}.npz``, under
 ``{save_path}/corrupt_graph/{attack}/`` with ``--attack``) and evaluates
 it on the data it loads, which it does not attack, on the CUDA card, or on
-the CPU with ``--device cpu``.  The distributed branch is not ported yet
-and raises when asked for.
+the CPU with ``--device cpu``.  With ``--dist_devices N`` (N > 1) the
+validation and test forwards shard over N ranks, under ``torchrun
+--standalone --nproc-per-node N -m graphslim_tpu_torch.run_eval ...
+--dist_devices N``; only rank 0 prints.
 """
 
 from __future__ import annotations
@@ -18,13 +20,12 @@ from typing import Optional
 from graphslim_tpu_torch import utils
 from graphslim_tpu_torch.config import get_args
 from graphslim_tpu_torch.data import get_syn_data, load
-from graphslim_tpu_torch.eval import Evaluator
-from graphslim_tpu_torch.train_all import refuse_unported
+from graphslim_tpu_torch.train_all import build_evaluator, run_mesh
 
 
 def main(argv: Optional[list[str]] = None):
     args = get_args(argv)
-    refuse_unported(args, ("dist_devices",))
+    mesh = run_mesh(args)
     data = load(args.dataset, setting=args.setting, split=args.split,
                 seed=args.seed, data_dir=args.load_path,
                 pre_norm=args.pre_norm, device=args.device)
@@ -34,10 +35,11 @@ def main(argv: Optional[list[str]] = None):
                            model_type=args.eval_model,
                            threshold=args.threshold, device=args.device,
                            attack=args.attack)
-    (mean, std), _ = Evaluator(data, args).evaluate(
+    (mean, std), _ = build_evaluator(data, args, mesh).evaluate(
         reduced, args.eval_model, verbose=args.verbose)
-    print(f"{args.method} on {args.dataset} r={args.reduction_rate} "
-          f"[{args.eval_model}]: {mean * 100:.2f} ± {std * 100:.2f}")
+    if utils.is_writer():
+        print(f"{args.method} on {args.dataset} r={args.reduction_rate} "
+              f"[{args.eval_model}]: {mean * 100:.2f} ± {std * 100:.2f}")
     return mean, std
 
 

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import logging
 
+from graphslim_tpu_torch.utils import is_writer
+
 log = logging.getLogger("graphslim_tpu_torch")
 
 
@@ -52,6 +54,8 @@ class WandbTracker:
 def build_tracker(args):
     """WandB when requested and importable; Null otherwise (a failure
     raises only with ``wandb_required``)."""
+    if not is_writer():   # one writer: rank 0 of a distributed run
+        return NullTracker()
     if getattr(args, "wandb", False):
         try:
             return WandbTracker(args)

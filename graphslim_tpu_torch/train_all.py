@@ -9,8 +9,18 @@ reduction, :mod:`graphslim_tpu_torch.data.attack`; ``--profile`` writes a
 torch.profiler trace of the reduction under
 ``{save_path}/traces/{method}_{dataset}/``; ``--wandb`` logs the graphs'
 summaries and the accuracy to WandB, or to nothing when it is not
-installed).  The distributed branch is not ported yet and raises when
-asked for.
+installed).
+
+``--dist_devices N`` (N > 1) runs under a launcher with N ranks, one a
+device: ``torchrun --standalone --nproc-per-node N -m
+graphslim_tpu_torch.train_all -D ogbn-arxiv -M gcond --dist_devices N``
+(NCCL on the cards; gloo with ``--device cpu``).  A condensation engine
+then shards its per-class gradient matching over the ranks
+(``enable_distributed``), and the evaluator its validation and test
+forwards (:mod:`graphslim_tpu_torch.dist`).  Only rank 0 prints the
+result, logs to the tracker and writes the artifact and the train state.
+Without enough ranks ``make_mesh`` raises; ``--dist_devices`` ≤ 1 stays
+local.
 """
 
 from __future__ import annotations
@@ -31,21 +41,6 @@ from graphslim_tpu_torch.tracking import build_tracker, graph_summary
 
 log = logging.getLogger("graphslim_tpu_torch")
 
-_NOT_PORTED = {
-    "dist_devices": "dist/ (ROADMAP.md, queue 1, item 14)",
-}
-
-
-def refuse_unported(args: Args, fields=tuple(_NOT_PORTED)) -> None:
-    """Raise for any of ``fields`` that asks for a branch not ported."""
-    for field in fields:
-        value = getattr(args, field)
-        if value and not (field == "dist_devices" and value <= 1):
-            raise NotImplementedError(f"--{field} needs "
-                                      f"{_NOT_PORTED[field]}, which is not "
-                                      "ported yet")
-
-
 def reduced_edges(reduced) -> int:
     """Entries of the reduced adjacency, as the JAX package counts them
     (the nonzeros of ``dense_adj()``; ``n_syn`` for the identity), from
@@ -59,8 +54,27 @@ def reduced_edges(reduced) -> int:
     return int(torch.count_nonzero(adj))
 
 
+def run_mesh(args: Args):
+    """The mesh of ``--dist_devices`` ranks when that is above 1, else
+    None; built before any work, so a launcher with too few ranks fails
+    first."""
+    if args.dist_devices <= 1:
+        return None
+    from graphslim_tpu_torch.dist import make_mesh
+    return make_mesh(args.dist_devices, device=args.device)
+
+
+def build_evaluator(graph, args: Args, mesh=None) -> Evaluator:
+    """The evaluator of a run: its validation and test forwards
+    node-sharded over ``mesh`` when given, else local."""
+    evaluator = Evaluator(graph, args)
+    if mesh is not None:
+        evaluator.enable_distributed(mesh)
+    return evaluator
+
+
 def run(args: Args):
-    refuse_unported(args)
+    mesh = run_mesh(args)
     graph = load(args.dataset, setting=args.setting, split=args.split,
                  seed=args.seed, data_dir=args.load_path,
                  pre_norm=args.pre_norm, device=args.device)
@@ -71,17 +85,20 @@ def run(args: Args):
     tracker.log_graph("original", graph_summary(graph.n_nodes,
                                                 graph.adj.nnz))
     agent = create_reducer(args.method, graph, args)
+    if mesh is not None and hasattr(agent, "enable_distributed"):
+        agent.enable_distributed(mesh=mesh)
     with trace(f"{args.save_path}/traces/{args.method}_{args.dataset}",
                enabled=args.profile, device=args.device):
         reduced = agent.reduce(graph, verbose=args.verbose)
     tracker.log_graph("reduced", graph_summary(reduced.n_syn,
                                                reduced_edges(reduced)))
-    (mean, std), _ = Evaluator(graph, args).evaluate(
+    (mean, std), _ = build_evaluator(graph, args, mesh).evaluate(
         reduced, args.eval_model, verbose=args.verbose)
-    tracker.log_metrics({"acc_mean": mean, "acc_std": std})
-    tracker.finish()
-    print(f"{args.method} on {args.dataset} r={args.reduction_rate}: "
-          f"{mean * 100:.2f} ± {std * 100:.2f}")
+    if utils.is_writer():
+        tracker.log_metrics({"acc_mean": mean, "acc_std": std})
+        tracker.finish()
+        print(f"{args.method} on {args.dataset} r={args.reduction_rate}: "
+              f"{mean * 100:.2f} ± {std * 100:.2f}")
     return mean, std
 
 

@@ -42,6 +42,43 @@ def seed_everything(seed: int) -> torch.Generator:
     return torch.Generator().manual_seed(seed)
 
 
+def is_writer() -> bool:
+    """Whether this process writes artifacts, train states, logs and
+    results: rank 0 of the default process group (before the group is up,
+    rank 0 of the launcher's ``RANK``), or a process without either (the
+    single writer of the JAX package's single controller)."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return dist.get_rank() == 0
+    return int(os.environ.get("RANK", "0")) == 0
+
+
+def build_once(path: str, build):
+    """``build()``, which writes the cache file ``path``, run by the
+    writer alone and only when ``path`` is missing → its result there,
+    ``None`` elsewhere (the caller then reads ``path``).  In a distributed
+    run every rank waits at a barrier until the writer is done, so no
+    rank computes the cache again or reads it half written."""
+    import torch.distributed as dist
+
+    out = None
+    if is_writer() and not os.path.exists(path):
+        out = build()
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+    return out
+
+
+def save_npz(path: str, **arrays) -> None:
+    """``np.savez_compressed`` of ``arrays`` to ``path``, atomically: a
+    temporary file beside it moved into place with ``os.replace``."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp.npz"
+    np.savez_compressed(tmp, **arrays)
+    os.replace(tmp, path)
+
+
 def make_generator(seed: int, device) -> torch.Generator:
     return torch.Generator(device=torch.device(device)).manual_seed(seed)
 

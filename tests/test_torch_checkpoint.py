@@ -171,7 +171,9 @@ def test_run_eval_reads_a_triple_the_jax_package_saved(tmp_path, capsys,
 
 @pytest.mark.parametrize("flag", [["--dist_devices", "2"]])
 def test_run_eval_refuses_branches_not_ported(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The distributed branch is ported: in a world of one rank (no
+    launcher) ``--dist_devices 2`` raises ``make_mesh``'s error."""
+    with pytest.raises(RuntimeError, match="requested a 2-device mesh"):
         run_eval.main(["-D", "synth-hard", "-M", "gcond", "--device", "cpu",
                        "--save_path", str(tmp_path)] + flag)
 

@@ -36,7 +36,9 @@ def test_importing_every_port_module_keeps_jax_out():
 
 
 @pytest.mark.parametrize("path", sorted(
-    [p for p in PORT.rglob("*.py")] + [REPO / "chip_smoke.py"]),
+    [p for p in PORT.rglob("*.py")] + [REPO / "chip_smoke.py",
+                                       REPO / "tests"
+                                       / "torch_dist_ranks.py"]),
     ids=lambda p: str(p.relative_to(REPO)))
 def test_no_source_imports_jax_or_the_jax_package(path):
     for node in ast.walk(ast.parse(path.read_text())):
@@ -165,13 +167,18 @@ def test_cli_rejects_options_nothing_reads(flag, tmp_path):
 
 
 def test_unported_names_raise_with_their_roadmap_item(tmp_path):
+    """Nothing is refused any more: the distributed branches run, and in a
+    world of one rank (no launcher) a 2-device mesh raises ``make_mesh``'s
+    error, before any work."""
     from graphslim_tpu_torch.config import Args, finalize
+    from graphslim_tpu_torch.dist import make_mesh
     from graphslim_tpu_torch.eval import Evaluator
     from graphslim_tpu_torch.train_all import run
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
-        Evaluator(None, None).enable_distributed(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
+    with pytest.raises(RuntimeError, match="requested a 2-device mesh"):
+        Evaluator(None, None).enable_distributed(make_mesh(2,
+                                                           device="cpu"))
+    with pytest.raises(RuntimeError, match="requested a 2-device mesh"):
         run(finalize(Args(dataset="synth-small", dist_devices=2,
                           save_path=str(tmp_path), device="cpu")))
 

@@ -2,7 +2,8 @@
 
 ``graphslim_tpu_torch/native`` compiles its own copy of
 ``graphslim_native.cpp`` into ``build/native/`` and binds the t-spanner,
-the greedy matching and the exact blossom matching with no Python
+the greedy matching, the exact blossom matching, the edge-cut partitioner,
+the sort-and-dedup and the connected components with no Python
 fallback.  On random weighted graphs each op returns exactly what the JAX
 package's library returns (asserted loaded, so that its Python fallbacks
 are never what the port is compared with); the blossom is also held to a
@@ -141,3 +142,54 @@ def test_blossom_is_exact_against_brute_force():
         assert got == _best_matching_weight(W), n
         flat = pairs.ravel().tolist()
         assert len(set(flat)) == len(flat)
+
+
+def _csr(seed: int, n: int, m: int):
+    """A random symmetric CSR graph (no loops, duplicates merged)."""
+    src, dst, _ = _graph(seed, n, m)
+    row = np.concatenate([src, dst])
+    col = np.concatenate([dst, src])
+    order = np.lexsort((col, row))
+    row, col = row[order], col[order]
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(row, minlength=n), out=indptr[1:])
+    return indptr, col
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("seed,n,m", [(0, 60, 300), (1, 500, 2500),
+                                      (2, 2000, 6000)])
+def test_partition_graph_equals_jax(seed, n, m, k):
+    indptr, col = _csr(seed, n, m)
+    for slack, passes in ((0.02, 10), (0.06, 8)):
+        part, cut = native.partition_graph(indptr, col, k, slack=slack,
+                                           passes=passes)
+        jpart, jcut = jnative.partition_graph(indptr, col, k, slack=slack,
+                                              passes=passes)
+        assert np.array_equal(part, jpart) and cut == jcut
+        assert part.min() >= 0 and part.max() < k
+
+
+@pytest.mark.parametrize("seed,n,m", [(0, 50, 400), (3, 300, 5000)])
+def test_csr_sort_dedup_equals_jax(seed, n, m):
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, n, m)
+    cols = rng.integers(0, n, m)
+    vals = rng.normal(size=m)
+    got = native.csr_sort_dedup(rows, cols, vals)
+    want = jnative.csr_sort_dedup(rows.copy(), cols.copy(), vals.copy())
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
+    keys = got[0] * n + got[1]
+    assert (np.diff(keys) > 0).all()
+    assert np.isclose(got[2].sum(), vals.sum())
+
+
+@pytest.mark.parametrize("seed,n,m", [(0, 100, 60), (4, 2000, 1500)])
+def test_connected_components_equals_jax(seed, n, m):
+    src, dst, _ = _graph(seed, n, m)
+    n_comp, comp = native.connected_components(src, dst, n)
+    jn, jcomp = jnative.connected_components(src, dst, n)
+    assert n_comp == jn and np.array_equal(comp, jcomp)
+    assert len(np.unique(comp)) == n_comp
+    assert (comp[src] == comp[dst]).all()

@@ -313,3 +313,57 @@ def test_sddmm_rmatmul_sum_rows_match_jax(case):
                       tadj.n_rows).numpy(),
         np.asarray(JSP.spmm_xla(jadj.row, jadj.col, jadj.val,
                                 jnp.asarray(x), jadj.n_rows)), atol=1e-6)
+
+
+def _rect(m: int, n: int, density: float, seed: int):
+    """A random [m, n] matrix with rows m//3..m//2 empty and one row that
+    points at every column, as CSR arrays and dense."""
+    rng = np.random.default_rng(seed)
+    dense = (rng.random((m, n)) < density) * rng.normal(size=(m, n))
+    dense[m // 3: m // 2] = 0.0
+    dense[m - 1] = rng.normal(size=n)
+    dense = dense.astype(np.float32)
+    row, col = np.nonzero(dense)
+    indptr = np.zeros(m + 1, dtype=np.int64)
+    np.cumsum(np.bincount(row, minlength=m), out=indptr[1:])
+    return indptr, col, dense[row, col], dense
+
+
+@pytest.mark.parametrize("m,n", [(200, 77), (70, 300), (129, 1), (5, 1000)])
+@pytest.mark.parametrize("sizes", [dict(td=16, ts=32, chunk=7, stage_min=4),
+                                   dict(td=64, ts=64, chunk=2048,
+                                        stage_min=10 ** 9), dict()])
+def test_rectangular_layout_matches_the_dense_product(m, n, sizes):
+    """An [m, n] layout (m ≠ n; a source count that is no multiple of the
+    tile; empty rows; a staged and a direct branch): the plain version
+    equals the dense product, and x must have n rows."""
+    indptr, col, val, dense = _rect(m, n, 0.1, m * n)
+    layout = SB.build_blocked(indptr, col, val, device="cpu", n_cols=n,
+                              **sizes)
+    assert (layout.n_rows, layout.n_cols) == (m, n)
+    x = np.random.default_rng(1).normal(size=(n, 24)).astype(np.float32)
+    out = SB.spmm_blocked(layout, _t(x)).numpy()
+    want = dense.astype(np.float64) @ x.astype(np.float64)
+    np.testing.assert_allclose(out, want, rtol=0, atol=1e-5 * max(
+        1.0, np.abs(want).max()))
+    assert (out[m // 3: m // 2] == 0).all()
+    with pytest.raises(ValueError, match=f"expected \\({n}, d\\)"):
+        SB._check(layout, _t(np.zeros((m + n, 24), np.float32)))
+    with pytest.raises(ValueError, match="outside"):
+        SB.build_blocked(indptr, col, val, device="cpu", n_cols=int(
+            col.max()) if col.size else 0)
+
+
+def test_square_layout_unchanged_by_the_column_count(case):
+    """A square matrix built with and without ``n_cols`` gives the same
+    layout and the same product, bit for bit."""
+    h = G.host_of(case[1])
+    a = SB.build_blocked(h.indptr, h.col, h.val, device="cpu")
+    b = SB.build_blocked(h.indptr, h.col, h.val, device="cpu",
+                         n_cols=h.n_rows)
+    for f in ("dst_local", "src_local", "val", "bounds", "blk_ptr",
+              "blk_dst", "blk_src", "tile_ptr"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert a.n_cols == a.n_rows == b.n_cols
+    x = torch.randn(h.n_rows, 8, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(SB.spmm_blocked(a, x), SB.spmm_blocked(b, x))

@@ -236,3 +236,42 @@ def test_spmm_matches_float64_and_repeats_at_every_width(card, d):
     assert (back.double() - b64).abs().max() <= \
         1e-5 * float(b64.abs().max()) + 1e-6
     assert torch.equal(back, SB.spmm_blocked(adj.blocked(transpose=True), gy))
+
+
+@pytest.mark.parametrize("d", [1, 40, 128, 129, 256])
+@pytest.mark.parametrize("m,n,sizes", [
+    (3000, 777, dict(td=64, ts=64, chunk=256, stage_min=8)),
+    (700, 5001, dict()),
+    (2048, 2048 + 300, dict(td=32, ts=448, chunk=50, stage_min=8))])
+def test_rectangular_spmm_matches_plain_and_float64(card, d, m, n, sizes):
+    """An [m, n] layout (a shard's boundary product): source count apart
+    from the row count and no multiple of the tile, empty rows, a row
+    over every column; the kernel against its plain version and float64,
+    bit for bit on a repeat."""
+    rng = np.random.default_rng(m + n)
+    e = 8 * m
+    row, col = rng.integers(0, m, e), rng.integers(0, n, e)
+    keep = (row < m // 3) | (row >= m // 2)
+    row = np.concatenate([row[keep], np.full(n, m - 1)])
+    col = np.concatenate([col[keep], np.arange(n)])
+    order = np.lexsort((col, row))
+    row, col = row[order], col[order]
+    w = rng.normal(size=row.shape[0]).astype(np.float32)
+    indptr = np.zeros(m + 1, dtype=np.int64)
+    np.cumsum(np.bincount(row, minlength=m), out=indptr[1:])
+    layout = SB.build_blocked(indptr, col, w, device=card, n_cols=n,
+                              **sizes)
+    g = torch.Generator(device=card).manual_seed(d)
+    x = torch.randn(n, d, generator=g, device=card)
+    out = SB.spmm_blocked(layout, x)
+    torch.cuda.synchronize()
+    ref = SB.spmm_blocked_plain(layout, x)
+    f64 = torch.zeros(m, d, dtype=torch.float64, device=card).index_add_(
+        0, torch.as_tensor(row, device=card),
+        torch.as_tensor(w, device=card).double()[:, None]
+        * x.double()[torch.as_tensor(col, device=card)])
+    tol = 1e-5 * float(f64.abs().max()) + 1e-6
+    assert (out - ref).abs().max() <= tol
+    assert (out.double() - f64).abs().max() <= tol
+    assert (out[m // 3: m // 2] == 0).all()
+    assert torch.equal(out, SB.spmm_blocked(layout, x))
