@@ -21,6 +21,7 @@ import torch
 
 from graphslim_tpu_torch import graph as G
 from graphslim_tpu_torch.data import ingest, synthetic
+from graphslim_tpu_torch.profiling import span
 from graphslim_tpu_torch.utils import resolve_device
 
 
@@ -228,56 +229,63 @@ def load(name: str, setting: Optional[str] = None,
     spec = DATASET_SPECS[name]
     setting = setting or spec.default_setting
     split = split or spec.split
-    loaded = ingest.try_load(name, data_dir) if data_dir else None
-    role = None
-    if loaded is not None:
-        edge_index, feat_np, labels_np, role = loaded
-        nclass = int(labels_np.max()) + 1
-    elif name == "karate":
-        edge_index, feat_np, labels_np = _load_karate()
-        nclass = spec.nclass
-    elif not spec.synth_ok:
-        raise FileNotFoundError(
-            f"{name} is ingestion-only (too large to synthesize); "
-            f"provide --load_path with {name}/adj_full.npz or "
-            f"{name}.npz")
-    else:
-        edge_index, feat_np, labels_np = _synth_cached(name, spec)
-        nclass = spec.nclass
+    with span("data.load", dataset=name):
+        with span("data.read"):
+            loaded = ingest.try_load(name, data_dir) if data_dir else None
+            role = None
+            if loaded is not None:
+                edge_index, feat_np, labels_np, role = loaded
+                nclass = int(labels_np.max()) + 1
+            elif name == "karate":
+                edge_index, feat_np, labels_np = _load_karate()
+                nclass = spec.nclass
+            elif not spec.synth_ok:
+                raise FileNotFoundError(
+                    f"{name} is ingestion-only (too large to synthesize); "
+                    f"provide --load_path with {name}/adj_full.npz or "
+                    f"{name}.npz")
+            else:
+                edge_index, feat_np, labels_np = _synth_cached(name, spec)
+                nclass = spec.nclass
 
-    n = feat_np.shape[0]
-    rng = np.random.default_rng(seed)
-    if role is not None:  # the split shipped with the files
-        idx_train, idx_val, idx_test = (np.sort(np.asarray(role[k]))
-                                        for k in ("tr", "va", "te"))
-    else:
-        idx_train, idx_val, idx_test = _make_splits(labels_np, nclass,
-                                                    split, rng)
-    adj, adj_host = G.from_edge_index(edge_index, n, symmetrize=True,
-                                      device=dev, return_host=True)
-    feat_np = np.asarray(feat_np, dtype=np.float32)
-    if pre_norm or spec.transform != "none":
-        if spec.transform == "standardize":
-            mu = feat_np[idx_train].mean(0)
-            sd = feat_np[idx_train].std(0)
-            feat_np = (feat_np - mu) / np.maximum(sd, 1e-12)
-        elif spec.transform == "row_norm":
-            norms = np.linalg.norm(feat_np, axis=1, keepdims=True)
-            feat_np = feat_np / np.maximum(norms, 1e-12)
-    feat = torch.as_tensor(feat_np, device=dev)
-    labels = torch.as_tensor(labels_np.astype(np.int64), device=dev)
-    ds = G.Dataset(name=name, feat=feat, labels=labels, adj=adj,
-                   idx_train=idx_train, idx_val=idx_val,
-                   idx_test=idx_test, nclass=nclass, setting=setting,
-                   adj_host=adj_host)
-    if setting == "ind":
-        # induced subgraphs from the host mirror and host features (no
-        # read-back), each moved to the device once
-        for split_name, idx in (("train", idx_train), ("val", idx_val),
-                                ("test", idx_test)):
-            ds.set_view(split_name, torch.as_tensor(feat_np[idx],
-                                                    device=dev),
-                        torch.as_tensor(labels_np[idx].astype(np.int64),
-                                        device=dev),
-                        G.host_submatrix(adj_host, idx))
+        n = feat_np.shape[0]
+        rng = np.random.default_rng(seed)
+        if role is not None:  # the split shipped with the files
+            idx_train, idx_val, idx_test = (np.sort(np.asarray(role[k]))
+                                            for k in ("tr", "va", "te"))
+        else:
+            idx_train, idx_val, idx_test = _make_splits(labels_np, nclass,
+                                                        split, rng)
+        splits = (("train", idx_train), ("val", idx_val),
+                  ("test", idx_test))
+        with span("data.graph"):
+            adj_host = G.host_from_edge_index(edge_index, n,
+                                              symmetrize=True)
+            # induced subgraphs from the host mirror (no read-back)
+            subs = ([G.host_submatrix(adj_host, idx) for _, idx in splits]
+                    if setting == "ind" else [])
+        with span("data.views"):
+            adj = adj_host.to_sparse(dev)
+            feat_np = np.asarray(feat_np, dtype=np.float32)
+            if pre_norm or spec.transform != "none":
+                if spec.transform == "standardize":
+                    mu = feat_np[idx_train].mean(0)
+                    sd = feat_np[idx_train].std(0)
+                    feat_np = (feat_np - mu) / np.maximum(sd, 1e-12)
+                elif spec.transform == "row_norm":
+                    norms = np.linalg.norm(feat_np, axis=1, keepdims=True)
+                    feat_np = feat_np / np.maximum(norms, 1e-12)
+            feat = torch.as_tensor(feat_np, device=dev)
+            labels = torch.as_tensor(labels_np.astype(np.int64), device=dev)
+            ds = G.Dataset(name=name, feat=feat, labels=labels, adj=adj,
+                           idx_train=idx_train, idx_val=idx_val,
+                           idx_test=idx_test, nclass=nclass,
+                           setting=setting, adj_host=adj_host)
+            # each induced subgraph and its host features moved to the
+            # device once
+            for (split_name, idx), sub in zip(splits, subs):
+                ds.set_view(split_name, torch.as_tensor(feat_np[idx],
+                                                        device=dev),
+                            torch.as_tensor(labels_np[idx].astype(np.int64),
+                                            device=dev), sub)
     return ds

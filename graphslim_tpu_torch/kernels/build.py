@@ -17,6 +17,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from graphslim_tpu_torch.profiling import count, span
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
@@ -86,10 +88,19 @@ def prebuild(names=None) -> dict:
 
 def load_library(name: str) -> tuple:
     """(ctypes library, build info) of one kernel library, compiled first
-    when it has no build.  The info holds the path, the build seconds
-    (0 when an existing build was reused) and nvcc's ``-Xptxas -v`` report."""
-    prebuild([name])
-    so, log = _paths(name)
-    info = dict(path=str(so), seconds=_SECONDS.get(name, 0.0),
-                report=log.read_text() if log.exists() else "")
-    return ctypes.CDLL(str(so)), info
+    when it has no build, in a ``kernels.load`` span (attributes
+    ``library`` and ``built``, true when nvcc ran; counter
+    ``kernels.built``).  The info holds the path, the build seconds (0
+    when an existing build was reused; those of an earlier
+    :func:`prebuild` when it built the library) and nvcc's ``-Xptxas -v``
+    report."""
+    with span("kernels.load", library=name) as s:
+        so, log = _paths(name)
+        built = not so.exists()
+        prebuild([name])
+        s.set(built=built)
+        if built:
+            count("kernels.built", 1)
+        info = dict(path=str(so), seconds=_SECONDS.get(name, 0.0),
+                    report=log.read_text() if log.exists() else "")
+        return ctypes.CDLL(str(so)), info

@@ -1,20 +1,36 @@
-"""Profiling utilities: ``torch.profiler`` traces and a throughput meter.
+"""Profiling utilities: spans and counters, ``torch.profiler`` traces and a
+throughput meter.
 
-Counterpart of ``graphslim_tpu/profiling.py``.  :func:`trace` captures a
-``torch.profiler`` trace around any reduction run (``--profile``): host
-operators, and on the card the device's kernels too, written as a
-Chrome/TensorBoard trace (``*.pt.trace.json``) under ``out_dir``.
-:func:`session` is the profiler window it opens, also used on its own to
-read device time.  :class:`Throughput` meters items per second around
-repeated calls; where the JAX package times dispatch (its ``measure``
-never blocks), this one synchronizes the card before each clock read when
-the work runs there.  The FLOP counter and the A100 ceiling are the JAX
-package's arithmetic.
+Counterpart of ``graphslim_tpu/profiling.py``, with a span recorder the
+JAX package does not have.  :func:`span` times a stretch of host code and
+:func:`count` adds a quantity into the innermost open span and into a
+process total; the condensation engine opens spans at its layer
+boundaries (set-up: ``data.load``, ``engine.init``, ``kernels.load``,
+``job.init``; each outer step: ``step`` and its phases) and the benchmark
+reads them back through :func:`spans` and :func:`counters`.  Spans are on
+the clock of ``time.time_ns``, the one ``torch.profiler`` maps the card's
+kernel records to, so a program span and a kernel record compare
+directly.  The recorder is on by default and costs two clock reads and
+one append a span: no device synchronization, no CUDA event, no tensor
+read.  ``RECORDER.enabled = False`` turns it off (:func:`span` then
+returns one shared no-op).
+
+:func:`trace` captures a ``torch.profiler`` trace around any reduction run
+(``--profile``): host operators, and on the card the device's kernels too,
+written as a Chrome/TensorBoard trace (``*.pt.trace.json``) under
+``out_dir``, with every span the body opens as a ``record_function``
+range of its name.  :func:`session` is the profiler window it opens, also
+used on its own to read device time.  :class:`Throughput` meters items per
+second around repeated calls; where the JAX package times dispatch (its
+``measure`` never blocks), this one synchronizes the card before each
+clock read when the work runs there.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import logging
 import os
 import socket
@@ -23,6 +39,161 @@ import time
 import torch
 
 log = logging.getLogger("graphslim_tpu_torch")
+
+# ---------------------------------------------------------------------------
+# Spans and counters
+# ---------------------------------------------------------------------------
+
+RING = 65_536        # step spans kept: about 14 a step at 70 steps/s, 15 s
+JOB_SPAN = "reduce"  # the outermost one opens a job
+STEP_SPAN = "step"   # numbers the outer steps of its job from 0
+
+
+class Recorder:
+    """Where spans and counters go: spans outside any outer step (set-up,
+    epochs) in one bounded buffer, spans of the steps in a ring of
+    ``RING``, both in the order they close; counter totals by name."""
+
+    def __init__(self):
+        self.enabled = True
+        self.ranges = False          # also open record_function ranges
+        self.stack: list = []        # open spans, innermost last
+        self.kept = collections.deque(maxlen=RING)
+        self.ring = collections.deque(maxlen=RING)
+        self.totals: dict = {}
+        self.ids = itertools.count()
+        self.jobs = itertools.count()
+        self.next_step = 0
+
+    def clear(self) -> None:
+        self.kept.clear()
+        self.ring.clear()
+        self.totals.clear()
+
+
+RECORDER = Recorder()
+
+
+class Span:
+    """One timed stretch of host code (see :func:`span`)."""
+
+    __slots__ = ("id", "name", "attrs", "start_ns", "end_ns", "parent",
+                 "job", "step", "error", "counts", "_range")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name, self.attrs = name, attrs
+        self.end_ns = None
+        self.error = self.counts = self._range = None
+
+    def __enter__(self):
+        r = RECORDER
+        parent = r.stack[-1] if r.stack else None
+        self.id = next(r.ids)
+        self.parent = parent
+        self.job = None if parent is None else parent.job
+        self.step = None if parent is None else parent.step
+        if self.name == JOB_SPAN and self.job is None:
+            self.job = next(r.jobs)
+            r.next_step = 0
+        elif self.name == STEP_SPAN:
+            self.step = r.next_step
+            r.next_step += 1
+        r.stack.append(self)
+        if r.ranges:
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.end_ns = time.time_ns()
+        r = RECORDER
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+            self._range = None
+        if exc_type is not None:
+            self.error = exc_type.__name__
+        r.stack.pop()
+        (r.kept if self.step is None else r.ring).append(self)
+        return False
+
+    def set(self, **attrs) -> None:
+        """Add attributes known only once the span is open."""
+        self.attrs.update(attrs)
+
+    @property
+    def seconds(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e9
+
+    def record(self) -> dict:
+        return dict(id=self.id, name=self.name, start_ns=self.start_ns,
+                    end_ns=self.end_ns,
+                    parent=None if self.parent is None else self.parent.id,
+                    job=self.job, step=self.step, attrs=dict(self.attrs),
+                    error=self.error, counts=dict(self.counts or {}))
+
+
+class _NoSpan:
+    """The recorder off: records nothing, times nothing."""
+
+    seconds = float("nan")
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **attrs) -> None:
+        pass
+
+
+_NOOP = _NoSpan()
+
+
+def span(name: str, **attrs):
+    """A context manager recording ``name``'s start, end, parent span, job
+    and outer step (``job``: the outermost open ``reduce`` span's; ``step``:
+    the innermost open ``step`` span's index in its job, shared by every
+    span inside it), ``attrs``, the exception that closed it if any, and
+    the counts added while it was the innermost span."""
+    if not RECORDER.enabled:
+        return _NOOP
+    return Span(name, attrs)
+
+
+def count(name: str, n) -> None:
+    """Add ``n`` into the innermost open span's ``name`` and the process
+    total."""
+    r = RECORDER
+    if not r.enabled:
+        return
+    r.totals[name] = r.totals.get(name, 0) + n
+    if r.stack:
+        top = r.stack[-1]
+        if top.counts is None:
+            top.counts = {}
+        top.counts[name] = top.counts.get(name, 0) + n
+
+
+def spans() -> list:
+    """Every closed span kept, in the order they opened, as plain dicts:
+    ``id``, ``name``, ``start_ns``, ``end_ns``, ``parent`` (an id or None),
+    ``job``, ``step``, ``attrs``, ``error``, ``counts``."""
+    r = RECORDER
+    return [s.record() for s in sorted((*r.kept, *r.ring),
+                                       key=lambda s: s.id)]
+
+
+def counters() -> dict:
+    """The process totals of every counter."""
+    return dict(RECORDER.totals)
+
+
+def clear() -> None:
+    """Forget every closed span and counter total."""
+    RECORDER.clear()
+
 
 # Kernel records lost at the start of a profiled window: on an H100
 # (torch 2.11, CUDA 12.8), once a process has run unprofiled work on the
@@ -78,14 +249,20 @@ def session(device="cuda", host: bool = True):
 @contextlib.contextmanager
 def trace(out_dir: str | None, enabled: bool = True, device="cuda"):
     """Trace the body into ``out_dir`` (TensorBoard's profiler plugin or
-    ``chrome://tracing`` read it); nothing when disabled or without a
-    directory."""
+    ``chrome://tracing`` read it), each span the body opens a
+    ``record_function`` range of its name; nothing when disabled or
+    without a directory."""
     if not enabled or not out_dir:
         yield
         return
     os.makedirs(out_dir, exist_ok=True)
-    with session(device) as prof:
-        yield
+    ranges = RECORDER.ranges
+    RECORDER.ranges = True
+    try:
+        with session(device) as prof:
+            yield
+    finally:
+        RECORDER.ranges = ranges
     path = os.path.join(out_dir, f"{socket.gethostname()}_{os.getpid()}."
                         f"{time.time_ns() // 1_000_000}.pt.trace.json")
     prof.export_chrome_trace(path)
@@ -124,48 +301,3 @@ class Throughput:
     def report(self) -> str:
         return (f"{self.per_second / 1e6:.1f} M {self.unit}/s "
                 f"({self.calls} calls, {self.elapsed:.3f}s)")
-
-
-def gcond_step_flops(*, n_classes: int, batch: int, fanouts, nfeat: int,
-                     nhid: int, nclass: int, ntrans: int, n_syn: int,
-                     pge_nhid: int, pge_nlayers: int,
-                     deep_rows: int | None = None) -> dict:
-    """Analytic FLOPs of one GCond outer step (forward and backward, f32
-    semantics), walking the shapes: the real phase per class, the
-    synthetic phase (one shared forward, a per-class vjp and the nested
-    backward) and the PGE pair MLP over ``n_syn²`` pairs.  ``deep_rows``
-    overrides the deepest block size (``batch·Π(fanout+1)`` by default;
-    PyG's deduplicating sampler yields fewer unique rows)."""
-    sizes = [batch]
-    for f in fanouts:
-        sizes.append(sizes[-1] * (f + 1))
-    deep = deep_rows if deep_rows is not None else sizes[-1]
-    trans_dims = ([nfeat, nclass] if ntrans == 1
-                  else [nfeat] + [nhid] * (ntrans - 1) + [nclass])
-
-    def mlp(m, dims):
-        return sum(2.0 * m * a * b for a, b in zip(dims[:-1], dims[1:]))
-
-    real = n_classes * 3.0 * mlp(deep, trans_dims)
-    syn_fwd = mlp(n_syn, trans_dims) + 2.0 * len(fanouts) * n_syn ** 2 \
-        * nclass
-    syn = syn_fwd + n_classes * 4.0 * syn_fwd
-    pge_dims = [2 * nfeat] + [pge_nhid] * (pge_nlayers - 1) + [1]
-    pge = 3.0 * mlp(n_syn * n_syn, pge_dims)
-    return {"real": real, "syn": syn, "pge": pge,
-            "total": real + syn + pge}
-
-
-def a100_reference_ceiling_steps_per_s() -> tuple[float, dict]:
-    """Upper bound on the reference PyTorch GCond's outer-step rate on an
-    A100 at ``configs/gcond/ogbn-arxiv.json`` (SGC ntrans 2, hidden 256,
-    r = 0.01): its FLOPs at 10,000 unique deep rows a class against the
-    A100's fp32 peak of 19.5 TFLOP/s (the reference leaves TF32 off).
-    The figure is the reference's A100 bound, not a measurement of this
-    port."""
-    f = gcond_step_flops(n_classes=40, batch=256, fanouts=(10, 5),
-                         nfeat=128, nhid=256, nclass=40, ntrans=2,
-                         n_syn=909, pge_nhid=256, pge_nlayers=3,
-                         deep_rows=10_000)
-    a100_fp32 = 19.5e12
-    return a100_fp32 / f["total"], f

@@ -7,13 +7,13 @@ Counterpart of ``graphslim_tpu/reduce/base.py``: every reducer exposes
 from __future__ import annotations
 
 import logging
-import time
 
 import numpy as np
 import torch
 
 from graphslim_tpu_torch import graph as G
 from graphslim_tpu_torch.data import save_reduced
+from graphslim_tpu_torch.profiling import span
 
 log = logging.getLogger("graphslim_tpu_torch")
 
@@ -55,7 +55,8 @@ def budgets_of(labels_syn: np.ndarray) -> dict:
 
 
 class Reducer:
-    """Base reducer: stores (data, args), times ``reduce``, saves output."""
+    """Base reducer: stores (data, args), times ``reduce`` (a ``reduce``
+    span, which opens a job of the span recorder), saves output."""
 
     save_output = True
 
@@ -69,11 +70,11 @@ class Reducer:
     def reduce(self, data: G.Dataset = None, verbose: bool = False
                ) -> G.Reduced:
         data = data if data is not None else self.data
-        t0 = time.perf_counter()
-        reduced = self._reduce(data, verbose)
-        if reduced.feat.is_cuda:
-            torch.cuda.synchronize(reduced.feat.device)
-        dt = time.perf_counter() - t0
+        with span("reduce", method=type(self).__name__) as job:
+            reduced = self._reduce(data, verbose)
+            if reduced.feat.is_cuda:
+                torch.cuda.synchronize(reduced.feat.device)
+        dt = job.seconds
         orig_mb = (data.feat.numel() * 4 + data.adj.nnz * 12) / 2 ** 20
         red_mb = (reduced.feat.numel() * 4 + (
             0 if reduced.adj is None else

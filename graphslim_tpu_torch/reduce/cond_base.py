@@ -33,6 +33,7 @@ from graphslim_tpu_torch.kernels.sample import (BlockSample, PackedCsr,
                                                 neighbor_sample_block,
                                                 packed_csr_of_norm)
 from graphslim_tpu_torch.models.pge import PGE, PGEConfig
+from graphslim_tpu_torch.profiling import count, span
 from graphslim_tpu_torch.reduce.base import Reducer, class_budgets
 
 log = logging.getLogger("graphslim_tpu_torch")
@@ -121,53 +122,58 @@ class CondensationBase(Reducer):
 
     def __init__(self, data: G.Dataset, args):
         super().__init__(data, args)
-        dev = data.device
-        labels_pool = data.labels_for_reduction()
-        self.budgets, labels_syn, self.class_ranges = class_budgets(
-            labels_pool, args.reduction_rate, absorb_remainder=True)
-        self.labels_syn = torch.as_tensor(labels_syn.astype(np.int64),
-                                          device=dev)
-        self.n_syn = int(labels_syn.shape[0])
-        self.d = data.n_feat
-        self.nclass = data.nclass
-        self.gen = utils.make_generator(args.seed, dev)
+        with span("engine.init", method=type(self).__name__):
+            dev = data.device
+            labels_pool = data.labels_for_reduction()
+            self.budgets, labels_syn, self.class_ranges = class_budgets(
+                labels_pool, args.reduction_rate, absorb_remainder=True)
+            self.labels_syn = torch.as_tensor(labels_syn.astype(np.int64),
+                                              device=dev)
+            self.n_syn = int(labels_syn.shape[0])
+            self.d = data.n_feat
+            self.nclass = data.nclass
+            self.gen = utils.make_generator(args.seed, dev)
 
-        # the real graph: the full graph, or the train subgraph in the
-        # inductive setting (pools then hold its local ids); the sampler's
-        # layout of its normalized adjacency comes from the host mirror
-        # (no device readback)
-        features, _, labels_real = data.train_graph()
-        tables = packed_csr_of_norm(data.train_norm_host(), dev)
+            # the real graph: the full graph, or the train subgraph in the
+            # inductive setting (pools then hold its local ids); the sampler's
+            # layout of its normalized adjacency comes from the host mirror
+            # (no device readback)
+            features, _, labels_real = data.train_graph()
+            with span("engine.tables"):
+                tables = packed_csr_of_norm(data.train_norm_host(), dev)
 
-        # per-class pools (padded)
-        self.classes = sorted(self.budgets.keys())
-        pool_base = data.pool_ids()
-        pools = [pool_base[labels_pool == c] for c in self.classes]
-        max_n = max(len(p) for p in pools)
-        pool_pad = np.zeros((len(self.classes), max_n), dtype=np.int64)
-        for i, p in enumerate(pools):
-            pool_pad[i, :len(p)] = p
-        self.batch = int(min(self.sample_batch, max_n))
-        self.real = RealTensors(
-            features=features, labels_real=labels_real,
-            pools=torch.as_tensor(pool_pad, device=dev),
-            pool_counts=torch.as_tensor([len(p) for p in pools],
-                                        dtype=torch.int64, device=dev),
-            self_vals=tables.node[:, 2], tables=tables)
+            # per-class pools (padded)
+            with span("engine.pools"):
+                self.classes = sorted(self.budgets.keys())
+                pool_base = data.pool_ids()
+                pools = [pool_base[labels_pool == c] for c in self.classes]
+                max_n = max(len(p) for p in pools)
+                pool_pad = np.zeros((len(self.classes), max_n),
+                                    dtype=np.int64)
+                for i, p in enumerate(pools):
+                    pool_pad[i, :len(p)] = p
+                self.batch = int(min(self.sample_batch, max_n))
+                self.real = RealTensors(
+                    features=features, labels_real=labels_real,
+                    pools=torch.as_tensor(pool_pad, device=dev),
+                    pool_counts=torch.as_tensor(
+                        [len(p) for p in pools], dtype=torch.int64,
+                        device=dev),
+                    self_vals=tables.node[:, 2], tables=tables)
 
-        self._build_class_tables()
+            self._build_class_tables()
 
-        self.model = M.get_model(args.condense_model, M.ModelConfig(
-            nfeat=self.d, nhid=args.hidden, nclass=data.nclass,
-            nlayers=args.nlayers, dropout=0.0, alpha=args.alpha,
-            ntrans=args.ntrans))
-        self.fanouts = tuple(fanouts_for(args.nlayers, data.name))
-        self.pge = PGE(PGEConfig.for_dataset(
-            self.d, self.n_syn, data.name, args.reduction_rate)) \
-            if self.with_structure else None
-        self.opt_feat = utils.Adam(args.lr_feat)
-        self.opt_pge = utils.Adam(args.lr_adj)
-        self.opt_model = utils.Adam(args.lr or 0.01)
+            self.model = M.get_model(args.condense_model, M.ModelConfig(
+                nfeat=self.d, nhid=args.hidden, nclass=data.nclass,
+                nlayers=args.nlayers, dropout=0.0, alpha=args.alpha,
+                ntrans=args.ntrans))
+            self.fanouts = tuple(fanouts_for(args.nlayers, data.name))
+            self.pge = PGE(PGEConfig.for_dataset(
+                self.d, self.n_syn, data.name, args.reduction_rate)) \
+                if self.with_structure else None
+            self.opt_feat = utils.Adam(args.lr_feat)
+            self.opt_pge = utils.Adam(args.lr_adj)
+            self.opt_model = utils.Adam(args.lr or 0.01)
 
     def _build_class_tables(self) -> None:
         """Class masks over the label vector the matching runs against
@@ -254,38 +260,50 @@ class CondensationBase(Reducer):
         C = targets.shape[0]
         with torch.enable_grad():
             # real gradients: detached, one batched pass over the classes
-            pr = _batched(model_params, C)
-            out = self.model.apply(pr, feat_deep,
-                                   BlockSample(node_ids=ids, weights=ws))
-            loss_r = masked_nll(out, self.real.labels_real[targets], valid)
-            gw_real = torch.autograd.grad(loss_r.sum(),
-                                          utils.tree_leaves(pr))
+            with span("match.real"):
+                pr = _batched(model_params, C)
+                out = self.model.apply(pr, feat_deep,
+                                       BlockSample(node_ids=ids, weights=ws))
+                loss_r = masked_nll(out, self.real.labels_real[targets],
+                                    valid)
+                gw_real = torch.autograd.grad(loss_r.sum(),
+                                              utils.tree_leaves(pr))
             # synthetic gradients: differentiable (nested gradient)
-            ps = _batched(model_params, C)
-            out_s = self.model.apply(_over_skeletons(ps, adj_syn_norm),
-                                     feat_syn, adj_syn_norm)
-            loss_s = masked_nll(out_s, self.labels_syn, masks)
-            gw_syn = torch.autograd.grad(loss_s.sum(),
-                                         utils.tree_leaves(ps),
-                                         create_graph=True)
-            mls = match_loss(list(gw_syn), list(gw_real),
-                             self.args.dis_metric)
-            return (coeffs * mls).sum()
+            with span("match.syn"):
+                ps = _batched(model_params, C)
+                out_s = self.model.apply(_over_skeletons(ps, adj_syn_norm),
+                                         feat_syn, adj_syn_norm)
+                loss_s = masked_nll(out_s, self.labels_syn, masks)
+                gw_syn = torch.autograd.grad(loss_s.sum(),
+                                             utils.tree_leaves(ps),
+                                             create_graph=True)
+            with span("match.loss"):
+                mls = match_loss(list(gw_syn), list(gw_real),
+                                 self.args.dis_metric)
+                return (coeffs * mls).sum()
 
     def match_loss_total(self, model_params: dict, feat_syn: torch.Tensor,
                          adj_syn_norm: torch.Tensor, gen: torch.Generator
                          ) -> torch.Tensor:
         """Σ_c coeff_c · match(gw_syn_c, gw_real_c), differentiable with
         respect to ``feat_syn`` and ``adj_syn_norm``; with
-        :meth:`enable_distributed`, the classes shard over the mesh."""
-        if self._sharded_match is not None:
-            return self._sharded_match(model_params, feat_syn, adj_syn_norm,
-                                       gen)
-        ids, ws, targets, valid = self._sample_all_class_blocks(gen)
-        return self.match_classes(model_params, feat_syn, adj_syn_norm,
-                                  self.real.features[ids[0]], ids, ws,
-                                  targets, valid, self.class_masks,
-                                  self.coeffs)
+        :meth:`enable_distributed`, the classes shard over the mesh.  A
+        ``step.match`` span; counts the sampled slots and the gathered
+        feature rows and bytes from the blocks' shapes."""
+        with span("step.match"):
+            if self._sharded_match is not None:
+                return self._sharded_match(model_params, feat_syn,
+                                           adj_syn_norm, gen)
+            with span("match.sample"):
+                ids, ws, targets, valid = self._sample_all_class_blocks(gen)
+                count("match.sampled_slots", ids[0].numel())
+            with span("match.gather"):
+                feat_deep = self.real.features[ids[0]]
+                count("match.gathered_rows", ids[0].numel())
+                count("match.gathered_bytes", feat_deep.nbytes)
+            return self.match_classes(model_params, feat_syn, adj_syn_norm,
+                                      feat_deep, ids, ws, targets, valid,
+                                      self.class_masks, self.coeffs)
 
     @property
     def adj_norm_full(self) -> G.SparseAdj:

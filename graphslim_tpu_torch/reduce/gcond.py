@@ -35,6 +35,7 @@ import torch
 from graphslim_tpu_torch import graph as G
 from graphslim_tpu_torch import utils
 from graphslim_tpu_torch.checkpoint import load_state, save_state
+from graphslim_tpu_torch.profiling import span
 from graphslim_tpu_torch.reduce.cond_base import CondensationBase
 
 log = logging.getLogger("graphslim_tpu_torch")
@@ -62,7 +63,10 @@ class GCond(CondensationBase):
     def _epoch(self, feat_syn: torch.Tensor, pge_params: dict,
                opt_f: dict, opt_p, update_pge: bool) -> torch.Tensor:
         """One epoch; updates ``feat_syn`` / ``pge_params`` in place and
-        returns the summed match loss (on the device)."""
+        returns the summed match loss (on the device).  Each outer step is
+        a ``step`` span whose children are its phases: ``step.generator``,
+        ``step.match`` (:meth:`match_loss_total`), ``step.backward``,
+        ``step.optimizers`` and ``step.inner``."""
         args = self.args
         mp = utils.trainable(self.model.init(self.gen))
         mp_leaves = utils.tree_leaves(mp)
@@ -70,29 +74,38 @@ class GCond(CondensationBase):
         pge_leaves = utils.tree_leaves(pge_params)
         losses = []
         for ol in range(args.outer_loop):
-            with torch.enable_grad():
-                adj_norm, aux = self.generator_forward(pge_params, feat_syn)
-                loss = self.match_loss_total(mp, feat_syn, adj_norm,
-                                             self.gen) + aux
-                g_f, *g_p = torch.autograd.grad(loss,
-                                                [feat_syn] + pge_leaves)
-            step_pge, step_feat = self._steps(update_pge, ol)
-            if step_pge:
-                self.opt_pge.step(pge_leaves, g_p, opt_p)
-            if step_feat:
-                self.opt_feat.step([feat_syn], [g_f], opt_f)
+            with span("step"):
+                with torch.enable_grad():
+                    with span("step.generator"):
+                        adj_norm, aux = self.generator_forward(pge_params,
+                                                               feat_syn)
+                    loss = self.match_loss_total(mp, feat_syn, adj_norm,
+                                                 self.gen) + aux
+                    with span("step.backward"):
+                        g_f, *g_p = torch.autograd.grad(
+                            loss, [feat_syn] + pge_leaves)
+                step_pge, step_feat = self._steps(update_pge, ol)
+                with span("step.optimizers"):
+                    if step_pge:
+                        self.opt_pge.step(pge_leaves, g_p, opt_p)
+                    if step_feat:
+                        self.opt_feat.step([feat_syn], [g_f], opt_f)
 
-            if args.inner_loop > 0:
-                fs_d = feat_syn.detach()
-                adj_inner = self.inner_adj(pge_params, fs_d)
-                for _ in range(args.inner_loop):
-                    with torch.enable_grad():
-                        out = self.model.apply(mp, fs_d, adj_inner)
-                        g = torch.autograd.grad(
-                            utils.nll_loss(out, self.labels_syn),
-                            mp_leaves)
-                    self.opt_model.step(mp_leaves, g, m_opt)
-            losses.append(loss.detach())
+                if args.inner_loop > 0:
+                    with span("step.inner"):
+                        fs_d = feat_syn.detach()
+                        with span("inner.adj"):
+                            adj_inner = self.inner_adj(pge_params, fs_d)
+                        with span("inner.fit"):
+                            for _ in range(args.inner_loop):
+                                with torch.enable_grad():
+                                    out = self.model.apply(mp, fs_d,
+                                                           adj_inner)
+                                    g = torch.autograd.grad(
+                                        utils.nll_loss(out, self.labels_syn),
+                                        mp_leaves)
+                                self.opt_model.step(mp_leaves, g, m_opt)
+                losses.append(loss.detach())
         return torch.stack(losses).sum()
 
     def state_path(self) -> str:
@@ -105,30 +118,33 @@ class GCond(CondensationBase):
 
     def _reduce(self, data: G.Dataset, verbose: bool) -> G.Reduced:
         args = self.args
-        feat_syn = self.init_feat_syn(verbose).requires_grad_(True)
-        if self.with_structure:
-            pge_params = utils.trainable(self.pge.init(self.gen))
-            opt_p = self.opt_pge.init(utils.tree_leaves(pge_params))
-        else:
-            pge_params, opt_p = {}, None
-        opt_f = self.opt_feat.init([feat_syn])
+        with span("job.init"):
+            feat_syn = self.init_feat_syn(verbose).requires_grad_(True)
+            if self.with_structure:
+                pge_params = utils.trainable(self.pge.init(self.gen))
+                opt_p = self.opt_pge.init(utils.tree_leaves(pge_params))
+            else:
+                pge_params, opt_p = {}, None
+            opt_f = self.opt_feat.init([feat_syn])
 
-        start = 0
-        if args.resume:
-            state, start = load_state(
-                self.state_path(),
-                (feat_syn, pge_params, opt_f, opt_p, self.gen.get_state()))
-            if state is not None:
-                feat_syn, pge_params, opt_f, opt_p, gen_state = state
-                self.gen.set_state(gen_state)
-                log.info("resumed %s from epoch %d", args.method, start)
+            start = 0
+            if args.resume:
+                state, start = load_state(
+                    self.state_path(),
+                    (feat_syn, pge_params, opt_f, opt_p,
+                     self.gen.get_state()))
+                if state is not None:
+                    feat_syn, pge_params, opt_f, opt_p, gen_state = state
+                    self.gen.set_state(gen_state)
+                    log.info("resumed %s from epoch %d", args.method, start)
 
         best_val, loss_avg = 0.0, 0.0
         self._best_reduced = None
         denom = max(self.nclass * args.outer_loop, 1)
         for it in range(start, args.epochs):
-            loss_sum = self._epoch(feat_syn, pge_params, opt_f, opt_p,
-                                   update_pge=(it % 50) < 10)
+            with span("epoch", epoch=it):
+                loss_sum = self._epoch(feat_syn, pge_params, opt_f, opt_p,
+                                       update_pge=(it % 50) < 10)
             self.epoch_loss_sums.append(loss_sum)
             if it in args.checkpoints:
                 loss_avg = float(loss_sum) / denom
