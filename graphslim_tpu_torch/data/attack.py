@@ -121,8 +121,7 @@ def attacked_dataset(data: G.Dataset, host, feat: torch.Tensor
         ds = G.Dataset(name=data.name, feat=feat, labels=data.labels,
                        adj=host.to_sparse(dev), idx_train=data.idx_train,
                        idx_val=data.idx_val, idx_test=data.idx_test,
-                       nclass=data.nclass, setting=data.setting,
-                       adj_host=host)
+                       nclass=data.nclass, setting=data.setting)
     if data.setting == "ind":
         for split in ("train", "val", "test"):
             idx = getattr(data, f"idx_{split}")

@@ -4,9 +4,10 @@ Counterpart of ``graphslim_tpu/data/loader.py``: the same 21 dataset
 profiles, the same host-NumPy synthesis seeded the same way, and the same
 readers of dataset files (:mod:`graphslim_tpu_torch.data.ingest`), so both
 packages load equal arrays.  Karate is Zachary's graph, kept here as a
-constant (no ``networkx``).  In the inductive setting the train, val and
-test subgraphs are induced on the host from the host mirror; every array
-is moved to ``device`` once.
+constant (no ``networkx``).  The adjacency is built on ``device``
+(symmetrized, deduplicated, CSR), and in the inductive setting the train,
+val and test subgraphs are induced there from it; host mirrors are read
+back only when asked for.  Every other array is moved to ``device`` once.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 
 from graphslim_tpu_torch import graph as G
 from graphslim_tpu_torch.data import ingest, synthetic
-from graphslim_tpu_torch.profiling import span
+from graphslim_tpu_torch.profiling import count, span
 from graphslim_tpu_torch.utils import resolve_device
 
 
@@ -258,14 +259,14 @@ def load(name: str, setting: Optional[str] = None,
                                                         split, rng)
         splits = (("train", idx_train), ("val", idx_val),
                   ("test", idx_test))
-        with span("data.graph"):
-            adj_host = G.host_from_edge_index(edge_index, n,
-                                              symmetrize=True)
-            # induced subgraphs from the host mirror (no read-back)
-            subs = ([G.host_submatrix(adj_host, idx) for _, idx in splits]
+        with span("data.graph", device=str(dev)):
+            adj = G.from_edge_index_on(dev, edge_index, n)
+            count("data.graph.entries", 2 * int(np.shape(edge_index)[1]))
+            subs = ([G.submatrix_on(adj, idx) for _, idx in splits]
                     if setting == "ind" else [])
+            if dev.type == "cuda":  # the span ends with its device work
+                torch.cuda.synchronize(dev)
         with span("data.views"):
-            adj = adj_host.to_sparse(dev)
             feat_np = np.asarray(feat_np, dtype=np.float32)
             if pre_norm or spec.transform != "none":
                 if spec.transform == "standardize":
@@ -280,9 +281,9 @@ def load(name: str, setting: Optional[str] = None,
             ds = G.Dataset(name=name, feat=feat, labels=labels, adj=adj,
                            idx_train=idx_train, idx_val=idx_val,
                            idx_test=idx_test, nclass=nclass,
-                           setting=setting, adj_host=adj_host)
-            # each induced subgraph and its host features moved to the
-            # device once
+                           setting=setting)
+            # each induced subgraph's host features moved to the device
+            # once
             for (split_name, idx), sub in zip(splits, subs):
                 ds.set_view(split_name, torch.as_tensor(feat_np[idx],
                                                         device=dev),

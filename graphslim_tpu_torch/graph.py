@@ -6,7 +6,10 @@ views as torch tensors; its product with a dense matrix goes through
 :func:`graphslim_tpu_torch.kernels.spmm.spmm` (on the card: the blocked
 SpMM kernel over a layout cached on the adjacency).  Load-time work
 (building, normalizing, submatrices, layouts) is host NumPy, as in the JAX
-package, and the result is moved to the dataset's device once.
+package, and the result is moved to the dataset's device once; the loaded
+graph and its inductive views are the exception, built on the dataset's
+device with tensor ops (:func:`from_edge_index_on`, :func:`submatrix_on`)
+into the same arrays.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from graphslim_tpu_torch.kernels import spmm_blocked as _blocked
 from graphslim_tpu_torch.kernels.ell import build_ell
 from graphslim_tpu_torch.kernels.segment import segment_sum
 from graphslim_tpu_torch.kernels.spmm import spmm as _spmm
+from graphslim_tpu_torch.profiling import count, span
 from graphslim_tpu_torch.utils import resolve_device
 
 
@@ -39,8 +43,8 @@ class SparseAdj:
     val: Optional[torch.Tensor]  # [nnz] float32 or None
     _layouts: dict = dataclasses.field(default_factory=dict, repr=False,
                                        compare=False)
-    # the host mirror this adjacency was moved from, if any (layouts are
-    # built from it without a read-back)
+    # the host mirror this adjacency was moved from or read back into, if
+    # any (layouts are built from it without a read-back)
     _host: Optional["HostAdj"] = dataclasses.field(default=None, repr=False,
                                                    compare=False)
 
@@ -152,12 +156,17 @@ class HostAdj(NamedTuple):
 
 
 def host_of(adj: SparseAdj) -> HostAdj:
-    """The host mirror a SparseAdj was moved from, or its read-back."""
-    if adj._host is not None:
-        return adj._host
-    return HostAdj(adj.indptr.cpu().numpy(), adj.row.cpu().numpy(),
-                   adj.col.cpu().numpy(),
-                   None if adj.val is None else adj.val.cpu().numpy())
+    """The host mirror a SparseAdj was moved from, or its read-back, kept
+    on the adjacency as its mirror (span ``graph.readback``, counter
+    ``graph.readback_bytes``)."""
+    if adj._host is None:
+        with span("graph.readback"):
+            arrays = [None if a is None else a.cpu().numpy()
+                      for a in (adj.indptr, adj.row, adj.col, adj.val)]
+            count("graph.readback_bytes",
+                  sum(a.nbytes for a in arrays if a is not None))
+        adj._host = HostAdj(*arrays)
+    return adj._host
 
 
 def _is_sorted(keys: np.ndarray) -> bool:
@@ -167,6 +176,12 @@ def _is_sorted(keys: np.ndarray) -> bool:
 def _indptr(row: np.ndarray, n: int) -> np.ndarray:
     indptr = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(np.bincount(row, minlength=n), out=indptr[1:])
+    return indptr
+
+
+def _indptr_on(row: torch.Tensor, n: int) -> torch.Tensor:
+    indptr = torch.zeros(n + 1, dtype=torch.int64, device=row.device)
+    torch.cumsum(torch.bincount(row, minlength=n), 0, out=indptr[1:])
     return indptr
 
 
@@ -225,6 +240,25 @@ def host_from_edge_index(edge_index: np.ndarray, n_nodes: int,
                    None if w is None else w.astype(np.float32))
 
 
+def from_edge_index_on(device, edge_index: np.ndarray,
+                       n_nodes: int) -> SparseAdj:
+    """Symmetrized, deduplicated, row-sorted SparseAdj of a [2, E] edge
+    index, built on ``device`` with tensor ops: the edge index moves there
+    once, its ``row * n + col`` keys of both directions are sorted and
+    deduplicated, and ``indptr`` comes from their rows' counts.  The arrays
+    equal ``host_from_edge_index(edge_index, n_nodes, symmetrize=True)``'s
+    bit for bit; no host mirror is kept (:func:`host_of` reads one back
+    when asked)."""
+    ei = torch.as_tensor(np.asarray(edge_index)).to(device).to(torch.int64)
+    keys = torch.cat([ei[0] * n_nodes + ei[1], ei[1] * n_nodes + ei[0]])
+    del ei
+    keys = torch.unique_consecutive(torch.sort(keys).values)
+    # the divisor of an empty graph's (empty) keys is any positive number
+    row = torch.div(keys, max(n_nodes, 1), rounding_mode="floor")
+    col = keys - row * n_nodes
+    return SparseAdj(_indptr_on(row, n_nodes), row, col, None)
+
+
 def from_edge_index(edge_index: np.ndarray, n_nodes: int,
                     edge_weight: Optional[np.ndarray] = None,
                     symmetrize: bool = False, dedup: bool = True,
@@ -264,6 +298,28 @@ def host_submatrix(adj: HostAdj, idx: np.ndarray) -> HostAdj:
     w = None if adj.val is None else np.asarray(adj.val)[keep]
     return host_from_edge_index(ei, idx.shape[0], edge_weight=w,
                                 dedup=False)
+
+
+def submatrix_on(adj: SparseAdj, idx: np.ndarray) -> SparseAdj:
+    """adj[np.ix_(idx, idx)] — induced subgraph of distinct node ids, on
+    ``adj``'s device with tensor ops: a lookup of the kept nodes, a keep
+    mask over the entries and its compaction, which leaves a (row,
+    col)-sorted ``adj`` sorted where ``idx`` is increasing (otherwise a
+    stable sort orders the entries).  The arrays equal
+    ``host_submatrix(host_of(adj), idx)``'s bit for bit."""
+    idx = np.asarray(idx, dtype=np.int64)
+    m, dev = idx.shape[0], adj.device
+    lookup = torch.full((adj.n_rows,), -1, dtype=torch.int64, device=dev)
+    lookup[torch.as_tensor(idx, device=dev)] = torch.arange(m, device=dev)
+    row, col = lookup[adj.row], lookup[adj.col]
+    keep = (row >= 0) & (col >= 0)
+    row, col = row[keep], col[keep]
+    val = None if adj.val is None else adj.val[keep].to(torch.float32)
+    if not _is_sorted(idx):
+        order = torch.argsort(row * m + col, stable=True)
+        row, col = row[order], col[order]
+        val = None if val is None else val[order]
+    return SparseAdj(_indptr_on(row, m), row, col, val)
 
 
 def submatrix(adj: HostAdj, idx: np.ndarray, device=None) -> SparseAdj:
@@ -384,8 +440,6 @@ class Dataset:
     feat_test: Optional[torch.Tensor] = None
     labels_test: Optional[torch.Tensor] = None
     adj_test: Optional[SparseAdj] = None
-    adj_host: Optional[HostAdj] = dataclasses.field(default=None,
-                                                    repr=False)
     # per view: its normalized host mirror and normalized device adjacency
     _view_norm_host: dict = dataclasses.field(default_factory=dict,
                                               repr=False)
@@ -408,6 +462,12 @@ class Dataset:
     @property
     def device(self) -> torch.device:
         return self.feat.device
+
+    @property
+    def adj_host(self) -> HostAdj:
+        """Raw host mirror of the full adjacency (read back once when it
+        was built on the device)."""
+        return host_of(self.adj)
 
     def adj_norm_host(self) -> HostAdj:
         """Cached host-side normalized adjacency (NumPy)."""
@@ -443,13 +503,14 @@ class Dataset:
         return self._adj_norm_ell
 
     def set_view(self, split: str, feat: torch.Tensor,
-                 labels: torch.Tensor, host: HostAdj) -> None:
-        """Install the induced subgraph of ``split`` (train | val | test)
-        from its host mirror; the adjacency moves to the device once and
-        keeps the mirror."""
+                 labels: torch.Tensor, adj) -> None:
+        """Install the induced subgraph of ``split`` (train | val | test):
+        a SparseAdj on the dataset's device, or a host mirror that moves
+        there once and is kept."""
         setattr(self, f"feat_{split}", feat)
         setattr(self, f"labels_{split}", labels)
-        setattr(self, f"adj_{split}", host.to_sparse(self.device))
+        setattr(self, f"adj_{split}", adj if isinstance(adj, SparseAdj)
+                else adj.to_sparse(self.device))
 
     def view_host(self, split: str) -> HostAdj:
         """Raw host mirror of the ``split`` subgraph's adjacency."""
