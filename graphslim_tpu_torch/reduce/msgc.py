@@ -6,6 +6,14 @@ scored by a shared MLP and normalized as a dense batch ``[B, n, n]``,
 gradient matching against the synthetic labels tiled once per skeleton,
 and window-averaged snapshots at the checkpoints.
 
+Spans (:mod:`graphslim_tpu_torch.profiling`): ``msgc.skeletons`` around
+the skeletons' host build in the constructor (counter
+``msgc.skeleton_entries``: the triples built), ``msgc.init`` around the
+synthetic features' init (the init reducer's own ``reduce`` nests in
+it), and in every call of the generator ``generator.score`` (counter
+``generator.scored_entries``: the entries scored), ``generator.scatter``
+(the scores into the dense batch, symmetrized) and ``generator.norm``.
+
 It runs on the GCond engine through its generator hooks
 (``generator_forward``, ``syn_adj_norm``, ``inference_adj``,
 ``inner_adj``): the edge scorer takes the PGE's place.  The engine's class
@@ -23,6 +31,7 @@ import torch
 
 from graphslim_tpu_torch import graph as G
 from graphslim_tpu_torch.models import nn
+from graphslim_tpu_torch.profiling import count, span
 from graphslim_tpu_torch.reduce.gcond import GCond
 
 # the edge scorer's hidden width (reference ``msgc.py:29-38``)
@@ -126,11 +135,15 @@ class EdgeScorer:
 
     def apply(self, params: dict, feat_syn: torch.Tensor) -> torch.Tensor:
         """[B, n, n] normalized adjacencies."""
-        scores = self.scores(params, feat_syn)[self.last]
-        adj = scores.new_zeros((self.batch, self.n, self.n))
-        adj = adj.index_put(self.target, scores)
-        adj = (adj.transpose(1, 2) + adj) / 2
-        return G.normalize_adj_dense(adj, add_loops=True)
+        with span("generator.score"):
+            scores = self.scores(params, feat_syn)
+            count("generator.scored_entries", self.rows.shape[0])
+        with span("generator.scatter"):
+            adj = scores.new_zeros((self.batch, self.n, self.n))
+            adj = adj.index_put(self.target, scores[self.last])
+            adj = (adj.transpose(1, 2) + adj) / 2
+        with span("generator.norm"):
+            return G.normalize_adj_dense(adj, add_loops=True)
 
 
 class MSGC(GCond):
@@ -154,8 +167,10 @@ class MSGC(GCond):
         self.labels_syn = torch.as_tensor(
             np.tile(y_syn, self.batch_size).astype(np.int64), device=dev)
         self._build_class_tables()
-        self.rows, self.cols, self.batches = build_skeletons(
-            y_syn, data.nclass, self.batch_size, args.seed)
+        with span("msgc.skeletons", batch=self.batch_size):
+            self.rows, self.cols, self.batches = build_skeletons(
+                y_syn, data.nclass, self.batch_size, args.seed)
+            count("msgc.skeleton_entries", self.rows.shape[0])
         self.pge = EdgeScorer(self.d, self.n_syn, self.batch_size,
                               self.rows, self.cols, self.batches, dev)
         self._window: collections.deque = collections.deque(maxlen=WINDOW)
@@ -186,10 +201,11 @@ class MSGC(GCond):
         by the skeletons)."""
         from graphslim_tpu_torch.reduce.registry import create_reducer
 
-        init_args = self.args.replace(method=self.args.init)
-        agent = create_reducer(self.args.init, self.data, init_args,
-                               labels_syn_override=self.y_syn)
-        return agent.reduce(self.data, verbose=verbose).feat.clone()
+        with span("msgc.init", init=self.args.init):
+            init_args = self.args.replace(method=self.args.init)
+            agent = create_reducer(self.args.init, self.data, init_args,
+                                   labels_syn_override=self.y_syn)
+            return agent.reduce(self.data, verbose=verbose).feat.clone()
 
     def intermediate_evaluation(self, feat_syn, adj_syn, best_val, it,
                                 loss_avg, verbose=False):
