@@ -75,11 +75,18 @@ line of output each, any failed check raises (non-zero exit):
    accuracy and the blocked SpMM's launches by width: ``clustering``,
    ``clustering --agg`` (its ``Â²X``: two launches at d = 128) and
    ``averaging``; ``vng`` with a GCN at hidden 256 (the k-means's shape
-   and seconds); ``msgc`` at its ogbn-arxiv paper config (init
+   and seconds); MSGC's edge scorer kernels against their plain version
+   at the MSGC arxiv cell's shapes (n 909, 16 skeletons from
+   ``build_skeletons``, 2d = H = 256; forward and backward, bit-equal on
+   a repeat, timed beside the plain version and their bounds); ``msgc``
+   at its ogbn-arxiv paper config (init
    clustering, 16 skeletons, outer 20, inner 3, SGC ntrans 2) cut to 3 of
    500 epochs with a checkpoint at epoch 1 (the skeleton build's host
-   seconds, epoch 1's outer steps/s, peak device memory, a
-   torch.profiler split of epoch 2); ``mirage`` at
+   seconds, epoch 1's outer steps/s, peak device memory, the scorer's
+   launches counted from 0: one backward chain an outer step, at least
+   two forward chains, and ``generator.fused_entries`` equal to
+   ``generator.scored_entries``; a torch.profiler split of epoch 2);
+   ``mirage`` at
    its defaults (the quantizing k-means's seconds); ``gecc`` at its
    ogbn-arxiv config (two hops: two launches at d = 128).  Every result
    must be finite; clustering, its agg variant, averaging and gecc must
@@ -1597,15 +1604,162 @@ def cluster_args(method: str, save_path: str, **kw):
                               *kw})
 
 
-def run_clusterers(SB, ds, tmp: str) -> dict:
+# MSGC's edge scorer at the MSGC arxiv cell's shapes: n_syn 909 with the
+# twin's class shares, 16 skeletons, d = 128 (2d = 256), hidden 256.
+ES_N, ES_BATCH = 909, 16
+# Tolerances against the plain version, float32 on both sides, max|Δ| ≤
+# rtol·max|ref| + atol (``tests/test_torch_msgc_scorer_cuda.py`` says why):
+# the forward sums 2d and H terms in another order than cuBLAS, with the
+# statistics from float64 partial sums on both sides: a few ulp of z, 1e-5
+# after the sigmoid.  The backward, on the same saved tensors and z1, sums
+# about 1e6 entries' float32 terms in another order: 1e-4 relative, plus
+# 1e-6 of the largest gradient entry (the biases in front of a BatchNorm,
+# 0 analytically).  A wrong index, mask or statistic moves an entry by
+# orders of magnitude more.
+ES_TOL_SCORE, ES_TOL_Z = (0.0, 1e-5), (1e-5, 0.0)
+ES_GRAD_RTOL, ES_GRAD_FLOOR = 1e-4, 1e-6
+ES_GRADS = ["feat", "W1", "b1", "W2", "b2", "w3", "b3", "bn1.scale",
+            "bn1.bias", "bn2.scale", "bn2.bias"]
+
+
+def edge_scorer_bounds(E: int, n: int, d: int, H: int) -> dict:
+    """Least ms at the float32 peak (operations bind at these shapes).
+    ``fwd``: the benchmark's count (``gsbench/arith_msgc.py``: the first
+    layer a product over the gathered rows, 2·E·(2d·H + H² + H));
+    ``fwd_folded``: the function's own least, the first layer folded
+    through linearity (X·W1[:d] and X·W1[d:] once a node, then a gather
+    and add an entry); ``bwd``: dW2 and dz2·W2ᵀ over the entries, the
+    segment sums' adds and the first layer's four [n, d]×[n, H] products,
+    without recomputing z1."""
+    ms = 1e3 / PEAK_FP32
+    return dict(fwd=ms * 2 * E * (2 * d * H + H * H + H),
+                fwd_folded=ms * (4 * n * d * H + E * H + 2 * E * (H * H + H)),
+                bwd=ms * (4 * E * H * H + 2 * E * H + 8 * n * d * H))
+
+
+def compare_edge_scorer(ds, stats: dict) -> None:
+    """MSGC's edge scorer kernels (``kernels/edge_scorer.py``) against
+    their plain version on the card at the MSGC arxiv cell's shapes (the
+    skeletons ``build_skeletons`` gives 909 synthetic nodes with the
+    twin's class shares): the forward's scores, z1, z2 and statistics;
+    the backward kernels against the plain backward on the same saved
+    tensors and z1, gradient by gradient; a second forward and backward
+    equal bit for bit; each timed beside its plain version and bounds."""
+    import torch
+
+    from graphslim_tpu_torch.kernels import edge_scorer as ES
+    from graphslim_tpu_torch.reduce import msgc as MS
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("edge scorer: TF32 is on; the port keeps float32 products")
+    y = MS.proportional_labels(ds.labels_for_reduction(), ES_N, ds.nclass)
+    rows, cols, batches = MS.build_skeletons(y, ds.nclass, ES_BATCH, 0)
+    scorer = MS.EdgeScorer(ds.n_feat, ES_N, ES_BATCH, rows, cols, batches,
+                           torch.device("cuda"))
+    ent = scorer.entries
+    E, d, H = ent.E, ds.n_feat, MS.SCORER_HIDDEN
+    g = torch.Generator(device="cuda").manual_seed(5)
+    (l1, l2, l3), (n1, n2) = (lambda p: (p["layers"], p["bns"]))(
+        scorer.init(g))
+
+    def r(t, scale, shift=0.0):     # biases and affines off their init
+        return shift + scale * torch.randn(t.shape, generator=g,
+                                           device="cuda")
+
+    flat = [torch.randn(ES_N, d, generator=g, device="cuda"), l1["w"],
+            r(l1["b"], 0.1), l2["w"], r(l2["b"], 0.1), l3["w"],
+            r(l3["b"], 0.1), r(n1["scale"], 0.2, 1.0), r(n1["bias"], 0.2),
+            r(n2["scale"], 0.2, 1.0), r(n2["bias"], 0.2)]
+    flat = [t.detach().contiguous() for t in flat]
+    w = torch.zeros(E, device="cuda")          # the scattered entries' weights
+    w[scorer.last] = torch.randn(scorer.last.shape[0], generator=g,
+                                 device="cuda")
+    bad: list = []
+    s, z1, z2, st = ES.forward(ent, *flat)
+    sp, z1p, z2p, stp = ES.forward_plain(ent, *flat)
+    e_s = check_close("edge scorer scores", s, sp, ES_TOL_SCORE, bad)
+    e_z = max(check_close(f"edge scorer {name}", a, b, ES_TOL_Z, bad)
+              / max(float(b.abs().max()), 1e-30)
+              for name, a, b in (("z1", z1, z1p), ("z2", z2, z2p),
+                                 ("statistics", st, stp)))
+    del sp, z1p, z2p, stp
+    # the plain backward on the kernels' saved tensors and z1; the kernels'
+    # backward writes over its z2, so it gets a copy
+    first = ES.first_layer
+    ES.first_layer = lambda *_: z1
+    try:
+        gp = ES.backward_plain(ent, ES._saved(flat, z2, st, s), w)
+    finally:
+        ES.first_layer = first
+    gk = ES.backward(ent, ES._saved(flat, z2.clone(), st, s), w)
+    scale = max(float(t.abs().max()) for t in gp)
+    errs, rel = {}, {}
+    for name, a, b in zip(ES_GRADS, gk, gp):
+        errs[name] = check_close(f"edge scorer d{name}", a, b,
+                                 (ES_GRAD_RTOL, ES_GRAD_FLOOR * scale), bad)
+        rel[name] = errs[name] / (ES_GRAD_RTOL * float(b.abs().max())
+                                  + ES_GRAD_FLOOR * scale)
+    del gp
+    s2, _, z2b, st2 = ES.forward(ent, *flat)
+    gk2 = ES.backward(ent, ES._saved(flat, z2b, st2, s2), w)
+    if not (torch.equal(s2, s) and all(torch.equal(a, b)
+                                       for a, b in zip(gk2, gk))):
+        bad.append("edge scorer: two runs differ")
+    del z1, z2, z2b, gk, gk2
+    torch.cuda.empty_cache()
+    if bad:
+        fail("edge scorer kernels disagree with their plain version:\n  "
+             + "\n  ".join(bad))
+
+    def kernels_both():
+        sk, _, zk, stk = ES.forward(ent, *flat)
+        ES.backward(ent, ES._saved(flat, zk, stk, sk), w)
+
+    def plain_both():
+        sk, _, zk, stk = ES.forward_plain(ent, *flat)
+        ES.backward_plain(ent, ES._saved(flat, zk, stk, sk), w)
+
+    fwd_ms = median_ms(lambda: ES.forward(ent, *flat), reps=10)
+    both_ms = median_ms(kernels_both, reps=10)
+    plain_fwd = median_ms(lambda: ES.forward_plain(ent, *flat), reps=5)
+    plain_both_ms = median_ms(plain_both, reps=5)
+    torch.cuda.empty_cache()
+    b = edge_scorer_bounds(E, ES_N, d, H)
+    worst = max(rel, key=rel.get)
+    log(f"edge scorer n={ES_N} 2d={2 * d} H={H} E={E} ({ES_BATCH} "
+        f"skeletons): scores max|Δ| {e_s:.2e}, z and statistics "
+        f"{e_z:.2e} of max|ref|; backward gaps / tolerance "
+        + ", ".join(f"{k} {v:.3f}" for k, v in rel.items())
+        + f" (largest {worst}); two runs bit-equal; forward {fwd_ms:.3f} ms "
+        f"(plain {plain_fwd:.3f}; bound {b['fwd']:.3f} by operations as "
+        f"the benchmark counts them, {100 * b['fwd'] / fwd_ms:.1f} %; "
+        f"{b['fwd_folded']:.3f} with the first layer folded, "
+        f"{100 * b['fwd_folded'] / fwd_ms:.1f} %), forward and backward "
+        f"{both_ms:.3f} ms (plain {plain_both_ms:.3f}; backward bound "
+        f"{b['bwd']:.3f} by operations)")
+    stats["edge_scorer_fwd"] = dict(
+        max_abs_err=e_s, ms=fwd_ms, plain_ms=plain_fwd, bound_ms=b["fwd"],
+        bound_by="operations (the benchmark's count)",
+        bound_ms_folded=b["fwd_folded"])
+    stats["edge_scorer_bwd"] = dict(
+        max_abs_err=max(errs.values()), share_of_tolerance=rel[worst],
+        ms=both_ms - fwd_ms,
+        plain_ms=plain_both_ms - plain_fwd, bound_ms=b["bwd"],
+        bound_by="operations")
+
+
+def run_clusterers(SB, ds, tmp: str, stats: dict) -> dict:
     """clustering, clustering --agg, averaging, vng, msgc, mirage and gecc
     at full width on the arxiv twin through create_reducer(...).reduce()
-    and the default evaluator; returns each kernel's launches over the
-    phase."""
+    and the default evaluator, MSGC's edge scorer checked first
+    (:func:`compare_edge_scorer`); returns each kernel's launches over the
+    phase, the scorer's over the MSGC run."""
     import numpy as np
     import torch
 
+    from graphslim_tpu_torch import profiling as P
     from graphslim_tpu_torch.eval import Evaluator
+    from graphslim_tpu_torch.kernels import edge_scorer as ES
     from graphslim_tpu_torch.reduce import create_reducer
     from graphslim_tpu_torch.reduce import msgc as MS
     from graphslim_tpu_torch.reduce import vng as VN
@@ -1708,8 +1862,11 @@ def run_clusterers(SB, ds, tmp: str) -> dict:
     class K0:                   # the PGE counters EpochTimer reads
         LAUNCHES: dict = {}
 
+    compare_edge_scorer(ds, stats)
     timers = {}
     torch.cuda.reset_peak_memory_stats()
+    ES.reset_launches()
+    counted = dict(P.counters())
     MS.build_skeletons = timed_build
     try:
         args = cluster_args("msgc", tmp, epochs=3).replace(checkpoints=(1,))
@@ -1724,11 +1881,25 @@ def run_clusterers(SB, ds, tmp: str) -> dict:
     finally:
         MS.build_skeletons = build
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    scorer = dict(ES.LAUNCHES)
+    entries = {k: P.counters().get(k, 0) - counted.get(k, 0)
+               for k in ("generator.scored_entries",
+                         "generator.fused_entries")}
     timer = timers["t"]
     if len(timer.seconds) != 3 or tuple(red.adj.shape) != \
             (16, eng.n_syn, eng.n_syn):
         fail(f"msgc: {len(timer.seconds)} epochs, adjacency "
              f"{tuple(red.adj.shape)}")
+    # one backward chain an outer step; a forward chain for the step's
+    # generator, one for the inner loop's, one a checkpoint
+    steps = len(timer.seconds) * args.outer_loop
+    if scorer["edge_scorer_bwd"] != steps or \
+            scorer["edge_scorer_fwd"] < 2 * steps + 1:
+        fail(f"msgc: edge scorer launches {scorer} over {steps} outer "
+             f"steps")
+    if not 0 < entries["generator.fused_entries"] == \
+            entries["generator.scored_entries"]:
+        fail(f"msgc: the scorer's kernels scored {entries} entries")
     kern = timer.kernels
     busy = sum(kern.values())
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:5]
@@ -1740,7 +1911,10 @@ def run_clusterers(SB, ds, tmp: str) -> dict:
         f"{built['seconds']:.2f} s, epoch 1 "
         f"{args.outer_loop / timer.seconds[1]:.3f} outer steps/s (epochs "
         f"{[round(x, 3) for x in timer.seconds]} s), peak device memory "
-        f"{peak:.2f} GiB, epoch losses {[round(x, 4) for x in losses]}; "
+        f"{peak:.2f} GiB, epoch losses {[round(x, 4) for x in losses]}, "
+        f"edge scorer launches {scorer['edge_scorer_fwd']} forward / "
+        f"{scorer['edge_scorer_bwd']} backward chains, "
+        f"{entries['generator.fused_entries']} entries scored by them; "
         f"profiled epoch: device busy {busy:.1f} ms (idle share estimated "
         f"as 1 - busy / epoch 1's wall: "
         f"{1 - busy / (1e3 * timer.seconds[1]):.3f}), top: "
@@ -1785,7 +1959,7 @@ def run_clusterers(SB, ds, tmp: str) -> dict:
              f"{ds.n_feat} (one a hop)")
     log(f"gecc ogbn-arxiv r=0.01 (depth 2, gamma/alpha/beta 0.6/0.5/0.0, "
         f"k-means): {summary}")
-    return {"spmm_blocked": SB.LAUNCHES["spmm_blocked"]}
+    return {"spmm_blocked": SB.LAUNCHES["spmm_blocked"], **scorer}
 
 
 # ---------------------------------------------------------------------------
@@ -4255,6 +4429,7 @@ def main() -> None:
                           os.path.join(HERE, "build", "cache"))
     from graphslim_tpu_torch import graph as G
     from graphslim_tpu_torch.kernels import build as B
+    from graphslim_tpu_torch.kernels import edge_scorer as ES
     from graphslim_tpu_torch.kernels import pge as K
     from graphslim_tpu_torch.kernels import smem_gather as SG
     from graphslim_tpu_torch.kernels import spmm_blocked as SB
@@ -4280,7 +4455,7 @@ def main() -> None:
     t0 = time.perf_counter()
     B.prebuild()
     build_s = time.perf_counter() - t0
-    for mod in (K, SB, SG):
+    for mod in (K, SB, SG, ES):
         mod.build()
         report = [ln.strip() for ln in mod.BUILD_INFO["report"].splitlines()
                   if "registers" in ln or "spill" in ln]
@@ -4318,7 +4493,7 @@ def main() -> None:
             elif opts.only == "condense":
                 run_condensers(K, SB, ds, tmp)
             elif opts.only == "cluster":
-                run_clusterers(SB, ds, tmp)
+                run_clusterers(SB, ds, tmp, {})
             else:
                 run_distillers(K, SB, SG, ds, tmp, {})
         log_windows()
@@ -4388,7 +4563,7 @@ def main() -> None:
     # --- phase 10 --------------------------------------------------------
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        clus = run_clusterers(SB, ds, tmp)
+        clus = run_clusterers(SB, ds, tmp, stats)
     lap("phase 10")
 
     # --- phase 11 --------------------------------------------------------
@@ -4470,6 +4645,17 @@ def main() -> None:
              + atk["smem_gather"] + ana["smem_gather"]
              + distp["smem_gather"],
              **stats["smem_gather"]),
+        # MSGC's scorer at the MSGC arxiv cell's shapes (phase 10); it
+        # replaces no TPU kernel (the JAX package's scorer is plain JAX);
+        # launches: from phase 10's MSGC run on (phases 10 and 12)
+        dict(name="edge_scorer_fwd", route="cuda",
+             source=src + "edge_scorer.cu", replaces=None,
+             launches=ES.LAUNCHES["edge_scorer_fwd"],
+             **stats["edge_scorer_fwd"]),
+        dict(name="edge_scorer_bwd", route="cuda",
+             source=src + "edge_scorer.cu", replaces=None,
+             launches=ES.LAUNCHES["edge_scorer_bwd"],
+             **stats["edge_scorer_bwd"]),
     ]
     for k in kernels:
         if not k["launches"] > 0:

@@ -29,6 +29,7 @@ LIBRARIES = {
                                          "spmm_common.cuh")),
     "smem_gather": ("smem_gather.cu", ("smem_gather.cu",
                                        "spmm_common.cuh")),
+    "edge_scorer": ("edge_scorer.cu", ("edge_scorer.cu",)),
 }
 
 _SECONDS: dict = {}

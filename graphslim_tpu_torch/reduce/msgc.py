@@ -10,9 +10,11 @@ Spans (:mod:`graphslim_tpu_torch.profiling`): ``msgc.skeletons`` around
 the skeletons' host build in the constructor (counter
 ``msgc.skeleton_entries``: the triples built), ``msgc.init`` around the
 synthetic features' init (the init reducer's own ``reduce`` nests in
-it), and in every call of the generator ``generator.score`` (counter
-``generator.scored_entries``: the entries scored), ``generator.scatter``
-(the scores into the dense batch, symmetrized) and ``generator.norm``.
+it), and in every call of the generator ``generator.score`` (counters
+``generator.scored_entries``: the entries scored, and
+``generator.fused_entries``: those the CUDA kernels scored, counted
+at their launch, none on the CPU), ``generator.scatter`` (the scores into the dense batch,
+symmetrized) and ``generator.norm``.
 
 It runs on the GCond engine through its generator hooks
 (``generator_forward``, ``syn_adj_norm``, ``inference_adj``,
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from graphslim_tpu_torch import graph as G
+from graphslim_tpu_torch.kernels import edge_scorer
 from graphslim_tpu_torch.models import nn
 from graphslim_tpu_torch.profiling import count, span
 from graphslim_tpu_torch.reduce.gcond import GCond
@@ -100,7 +103,9 @@ class EdgeScorer:
     The skeletons hold some (batch, row, col) entries twice, from two
     different links; as in the JAX package's scatter, the later one
     sets the entry (and takes its gradient), so only the last occurrence
-    of each entry is scattered.
+    of each entry is scattered.  Every entry is scored and enters the
+    BatchNorm statistics.  The MLP runs in :mod:`kernels.edge_scorer`:
+    hand-written kernels on the card, its plain version on the CPU.
     """
 
     def __init__(self, nfeat: int, n: int, batch: int, rows: np.ndarray,
@@ -114,7 +119,9 @@ class EdgeScorer:
         def t(a):
             return torch.as_tensor(np.asarray(a, np.int64), device=device)
 
-        self.rows, self.cols, self.last = t(rows), t(cols), t(last)
+        self.entries = edge_scorer.Entries(rows, cols, n, device)
+        self.rows, self.cols = self.entries.rows, self.entries.cols
+        self.last = t(last)
         self.target = (t(batches[last]), t(rows[last]), t(cols[last]))
 
     def init(self, gen: torch.Generator) -> dict:
@@ -125,13 +132,11 @@ class EdgeScorer:
 
     def scores(self, params: dict, feat_syn: torch.Tensor) -> torch.Tensor:
         """One score in (0, 1) per skeleton entry."""
-        h = torch.cat([feat_syn[self.rows], feat_syn[self.cols]], dim=1)
-        layers = params["layers"]
-        for i, p in enumerate(layers):
-            h = nn.linear_apply(p, h)
-            if i != len(layers) - 1:
-                h = torch.relu(nn.bn_apply(params["bns"][i], h))
-        return torch.sigmoid(h.reshape(-1))
+        (l1, l2, l3), (n1, n2) = params["layers"], params["bns"]
+        return edge_scorer.edge_scores(
+            self.entries, feat_syn, l1["w"], l1["b"], l2["w"], l2["b"],
+            l3["w"], l3["b"], n1["scale"], n1["bias"], n2["scale"],
+            n2["bias"])
 
     def apply(self, params: dict, feat_syn: torch.Tensor) -> torch.Tensor:
         """[B, n, n] normalized adjacencies."""
