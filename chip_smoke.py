@@ -6,17 +6,17 @@ line of output each, any failed check raises (non-zero exit):
 
 1. the card's name and power limit; build of the kernels (one nvcc for
    each source under ``graphslim_tpu_torch/csrc``, all started together);
-2. the PGE forward kernel against its plain version on the card, at the
+2. the PGE forward kernel against its plain version on the card (both
+   with bf16 matmul operands, the kernels' only precision), at the
    slice's shapes (n = 1354, H = 256, L2 = 1), the inductive twins'
    (n = 713 and 186 at H = 256, 36 at H = 128; timed beside their
-   bounds) and smaller ragged ones,
-   in fp32 and with bf16 matmul operands; at the slice's shape both
+   bounds) and smaller ragged ones; at the slice's shape both
    launch kinds (keeping the workspace the backward reads, and without
    it, as under no_grad), equal bit for bit, each timed with the bytes of
    workspace it allocates;
 3. the PGE backward kernel against autograd of the plain version, on all
-   seven gradients, and in both precisions against a float64 plain
-   version; at the slice's shape its time beside the bytes of
+   seven gradients, and against a float64 plain version with float32
+   operands; at the slice's shape its time beside the bytes of
    device-memory scratch a launch allocates;
 4. GCond on the full-width ``ogbn-arxiv`` twin (n_syn 1354, hidden 256,
    PGE nhid 256, 3 epochs × 20 outer steps, a checkpoint evaluation) through
@@ -56,17 +56,17 @@ line of output each, any failed check raises (non-zero exit):
    ogbn-arxiv paper configs (``method_configs.py``) cut in depth, through
    ``create_reducer(...).reduce()`` and the default evaluator (GCN,
    ``ARXIV_EVAL_SEEDS`` = 1 seed × 300 epochs, as in phases 10 and 11).
-   ``doscond``, ``gcondx`` and ``gcdm`` run 7 epochs with
-   a checkpoint at epoch 1: epoch 0 warms up, epochs 1-5 give the outer
-   steps/s, epoch 6 is profiled.  ``doscond``: one PGE forward keeping the
-   workspace and one backward an outer step, no-grad forwards only at
-   checkpoints and the end; a torch.profiler split of one epoch; then
+   ``doscond``, ``gcondx`` and ``gcdm`` run 7 epochs with a checkpoint
+   at epoch 1: epoch 0 warms up, epochs 1-5 give the mean epoch wall of
+   the idle-share estimate, epoch 6 is profiled.  ``doscond``: one PGE
+   forward keeping the workspace and one backward an outer step, no-grad
+   forwards only at checkpoints and the end; a torch.profiler split of
+   one epoch; then
    ``--resume`` from the saved state, which must start at epoch 2 with the
    saved state bit for bit.  ``gcondx``: no PGE launch.  ``gcdm``: one
    blocked-SpMM launch at d = 256 an outer step and none at d = 40; the
    SpMM's share of an epoch's device time.  ``sgdd``: 1 epoch of 20 outer
-   steps with IGNR at n = 1354, the rate over steps 2-19 without the
-   profiled step 11 and step 12; peak device memory, the ``eigh``, its
+   steps with IGNR at n = 1354; peak device memory, the ``eigh``, its
    backward and ``eigvalsh`` of step 11;
 10. k-means, the clustering coarseners, VNG, MSGC, Mirage and GECC at
    full width on the twin at r = 0.01, through
@@ -82,10 +82,11 @@ line of output each, any failed check raises (non-zero exit):
    at its ogbn-arxiv paper config (init
    clustering, 16 skeletons, outer 20, inner 3, SGC ntrans 2) cut to 3 of
    500 epochs with a checkpoint at epoch 1 (the skeleton build's host
-   seconds, epoch 1's outer steps/s, peak device memory, the scorer's
-   launches counted from 0: one backward chain an outer step, at least
-   two forward chains, and ``generator.fused_entries`` equal to
-   ``generator.scored_entries``; a torch.profiler split of epoch 2);
+   seconds, peak device memory, the scorer's launches counted from 0:
+   one backward chain an outer step, at least two forward chains an
+   outer step, and ``generator.scored_entries`` equal to the forward
+   chains times the skeletons' entries; a torch.profiler split of epoch
+   2);
    ``mirage`` at
    its defaults (the quantizing k-means's seconds); ``gecc`` at its
    ogbn-arxiv config (two hops: two launches at d = 128).  Every result
@@ -124,11 +125,10 @@ line of output each, any failed check raises (non-zero exit):
    kept loaded for phase 17): GCond (n_syn
    186) for 2 of its 1000 epochs with SGC; the yelp twin: GCond (n_syn 36,
    PGE nhid 128) with GCN scored by macro F1.  Each run prints n_syn,
-   reduce seconds, outer steps/s where it applies, launches by kind and
-   SpMM width, peak memory and the idle share of a profiled epoch, step
-   or (device-traced) reduce; GCond must keep the PGE launch rule.  Each
-   run's launches are counted from 0 (the counters are reset just before
-   it and read just after);
+   reduce seconds, launches by kind and SpMM width, peak memory and the
+   idle share of a profiled epoch, step or (device-traced) reduce; GCond
+   must keep the PGE launch rule.  Each run's launches are counted from 0
+   (the counters are reset just before it and read just after);
 13. edge sparsification and structural coarsening through
    ``train_all.run`` (each twin loaded once and handed to it) and the
    default evaluator (GCN, ``COARSEN_EVAL_EPOCHS`` = 100 epochs), at
@@ -232,7 +232,7 @@ line of output each, any failed check raises (non-zero exit):
    matching sharded over a mesh of one rank on NCCL
    (``enable_distributed(1)``), features replicated and sharded: the first
    match loss against the unsharded engine's from the same draws (1e-5
-   relative), the PGE launch rule, outer steps/s beside phase 4's; (d) the
+   relative), the PGE launch rule; (d) the
    evaluator's mesh path (``Evaluator.enable_distributed``): SGC on the
    arxiv artifact (3 seeds × 300 epochs, ≥ 0.80), one GCN fit, and the
    reddit twin's gcondx artifact with its val and test subgraphs sharded
@@ -279,32 +279,19 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 
 # Tolerances of the kernel/plain comparisons, max|Δ| ≤ rtol·max|ref| + atol.
-# Forward, fp32: only the summation order differs.  bf16: both versions
-# round the matmul operands to bf16 (relative error 2^-9 each); a rounding
-# flip of one operand moves a product by that much.
-TOL_FWD = {False: (1e-4, 1e-5), True: (2e-2, 1e-4)}
-# Backward, bf16: 1.5e-2, 1.7 times the largest reading on the H100 (8.8e-3
+# Forward: both versions round the matmul operands to bf16 (relative error
+# 2^-9 each); a rounding flip of one operand moves a product by that much.
+TOL_FWD = (2e-2, 1e-4)
+# Backward: 1.5e-2, 1.7 times the largest reading on the H100 (8.8e-3
 # of max|grad|, dwmid at n = 1354): the kernel rounds dz to bf16 before its
 # matmuls where autograd of the plain version rounds the matmul results
 # instead.  A per-channel sum over all pairs (dbeta, dgamma) can cancel to
 # a small result, and there the two roundings differ by more (4.7e-2 of
 # max|dbeta| at n = 500, beta + 4); such a gradient passes only where the
-# kernel is nearer float64 than the plain version.  Both bf16 gradients
-# are held to the float64 gradient with fp32 operands (the exact
-# function): |kernel - f64| ≤ 2·|plain bf16 - f64| + 1e-4·max|f64|.
-# fp32: per case below.  At n ≥ 500 the fp32 gradient is ill-conditioned in
-# a few tiles (a pre-activation within rounding of the ReLU kink, or a
-# channel whose BatchNorm variance nearly cancels): measured on the H100,
-# the plain fp32 version is up to 1.7e-3·max|grad| off a float64 run of
-# itself even with the BatchNorm shifts beta + 4 that keep pre-activations
-# off the kink, and 2.3e-3·max with generic inputs, at whole tile rows.  So
-# the kernel is held to rtol 1e-4 against the plain fp32 version where that
-# version is accurate (n ≤ 500 off the kink, n = 45), and otherwise to a
-# bound that covers the plain version's own error.  Against float64 it is
-# held off the kink to |kernel - f64| ≤ 2·|plain fp32 - f64| + 1e-4·max,
-# and with generic inputs, where kink flips land on either side, to a
-# stated flip-sized bound rtol·max|f64|.
-RTOL_BWD_BF16 = (1.5e-2, 1e-4)
+# kernel is nearer float64 than the plain version.  Both gradients are
+# held to the float64 gradient with fp32 operands (the exact function):
+# |kernel - f64| ≤ 2·|plain bf16 - f64| + 1e-4·max|f64|.
+TOL_BWD = (1.5e-2, 1e-4)
 GRAD_NAMES = ("da", "db", "dwmid", "dbmid", "dgamma", "dbeta", "dwlast")
 
 
@@ -397,16 +384,15 @@ def pge_inputs(n: int, H: int, L2: int, seed: int, beta_shift: float):
             beta_shift + r(L2 + 1, H, scale=0.1), r(1, H, scale=H ** -0.5)]
 
 
-def pge_bounds(n: int, H: int, L2: int, bf16: bool) -> dict:
+def pge_bounds(n: int, H: int, L2: int) -> dict:
     """Least times of the forward and backward on the card, the larger of
     two: operations of the n² valid pairs' matmuls (forward 2·n²·H²·L2;
-    backward twice that, dW and dX) over the peak for the operand type, and
+    backward twice that, dW and dX) over the bf16 tensor-core peak, and
     bytes over HBM bandwidth, each input read once and each output written
     once.  The forward's function is the scores alone: the workspace it
     also writes is a choice of this design, so it is not counted.  The
     backward reads that workspace as an input (the valid pairs' pre-
     BatchNorm activations, n²·H·L2 floats) instead of recomputing it."""
-    peak = PEAK_BF16 if bf16 else PEAK_FP32
     flops = {"fwd": 2.0 * n * n * H * H * L2}
     flops["bwd"] = 2 * flops["fwd"]
     params = (L2 * H * H + L2 * H + 2 * (L2 + 1) * H + H) * 4
@@ -415,7 +401,7 @@ def pge_bounds(n: int, H: int, L2: int, bf16: bool) -> dict:
               "bwd": ab + params + scores + ws + ab + params}
     out = {}
     for k in ("fwd", "bwd"):
-        t_ops, t_bytes = flops[k] / peak, nbytes[k] / PEAK_BYTES
+        t_ops, t_bytes = flops[k] / PEAK_BF16, nbytes[k] / PEAK_BYTES
         out[k] = 1e3 * max(t_ops, t_bytes)
         out[k + "_by"] = "operations" if t_ops > t_bytes else "bytes"
     return out
@@ -439,50 +425,38 @@ def plain_grads(K, args, R, n: int, bf16: bool, dtype=None) -> list:
             for g, x in zip(gs, leaves)]
 
 
-def plain_vjp_ms(K, args, R, n: int, bf16: bool) -> float:
+def plain_vjp_ms(K, args, R, n: int) -> float:
     """Time of the plain version's backward alone (autograd through a
     graph built once), the counterpart of the backward kernel."""
     import torch
 
     leaves = [a.clone().requires_grad_(True) for a in args]
     with torch.enable_grad():
-        loss = (K.pair_scores_plain(*leaves, n, bf16) * R).sum()
+        loss = (K.pair_scores_plain(*leaves, n) * R).sum()
         ms = timed_ms(lambda: torch.autograd.grad(
             loss, leaves, retain_graph=True, allow_unused=True), 2)
     del loss
     return ms
 
 
-# (n, H, L2, BatchNorm beta shift, fp32 backward rtol against the plain
-# fp32 version, fp32 rtol against float64: None holds the kernel to twice
-# the plain version's distance instead).  Each case's two precisions share
-# its inputs.  The first case is the slice's shape and times the kernels;
-# at H = 320 a backward block holds one pair of operand tiles, not two.
-# The inductive twins' shapes (phase 12) take the tolerances of the cases
-# beside them: n = 713 (flickr, r = 0.01) those of n = 1354 off the kink,
-# n = 186 (reddit, r = 0.001: a partial second column tile of 58) and
-# n = 36 at H = 128 (yelp, r = 0.001) those of the small cases.
-KERNEL_CASES = [(1354, 256, 1, 0.0, 1e-2, 1e-2),
-                (1354, 256, 1, 4.0, 5e-3, None),
-                (713, 256, 1, 4.0, 5e-3, None),
-                (500, 256, 1, 4.0, 1e-4, None),
-                (500, 256, 1, 0.0, 1e-2, 1e-2),
-                (200, 256, 2, 4.0, 1e-4, None),
-                (186, 256, 1, 4.0, 1e-4, None),
-                (150, 320, 1, 4.0, 1e-4, None),
-                (45, 64, 0, 0.0, 1e-4, None),
-                (36, 128, 1, 4.0, 1e-4, None)]
+# (n, H, L2, BatchNorm beta shift: 4 keeps pre-activations off the ReLU
+# kink, 0 is generic).  The first case is the slice's shape and times the
+# kernels; at H = 320 a backward block holds one pair of operand tiles,
+# not two.  n = 713 (flickr, r = 0.01), n = 186 (reddit, r = 0.001: a
+# partial second column tile of 58) and n = 36 at H = 128 (yelp,
+# r = 0.001) are the inductive twins' shapes (phase 12).
+KERNEL_CASES = [(1354, 256, 1, 0.0), (1354, 256, 1, 4.0),
+                (713, 256, 1, 4.0), (500, 256, 1, 4.0), (500, 256, 1, 0.0),
+                (200, 256, 2, 4.0), (186, 256, 1, 4.0), (150, 320, 1, 4.0),
+                (45, 64, 0, 0.0), (36, 128, 1, 4.0)]
 # (n, H, L2) of the inductive twins' PGE, timed beside the slice's shape
 IND_PGE_SHAPES = {(713, 256, 1), (186, 256, 1), (36, 128, 1)}
 
 
-def f64_distances(grads, gref, g64, rtol64, bad: list, tag: str,
-                  rows: bool) -> dict:
+def f64_distances(grads, gref, g64, bad: list, tag: str) -> dict:
     """Each gradient's distance to float64, the kernel's beside the plain
-    version's, held to the bound ``rtol64`` names (see RTOL_BWD_BF16), and
-    with ``rows`` the rows of da that are off float64 by more than
-    1e-3·max for each (a ReLU flip moves a few rows, a wrong formula all
-    of them)."""
+    version's, the kernel's held to twice the plain version's (see
+    TOL_BWD)."""
     out = {}
     for i, name in enumerate(GRAD_NAMES):
         if not g64[i].numel():
@@ -491,18 +465,11 @@ def f64_distances(grads, gref, g64, rtol64, bad: list, tag: str,
         top = float((g64[5] if name == "dbmid" else g64[i]).abs().max())
         e_k = max_err(grads[i].double(), g64[i])
         e_p = max_err(gref[i].double(), g64[i])
-        lim = (2 * e_p + 1e-4 * top if rtol64 is None
-               else rtol64 * top + 1e-5)
+        lim = 2 * e_p + 1e-4 * top
         if not e_k <= lim:
             bad.append(f"bwd {name} {tag}: |kernel - f64| {e_k:.3e} > "
                        f"{lim:.3e}")
         out[name] = (e_k, e_p)
-    if not rows:
-        return out
-    big = 1e-3 * float(g64[0].abs().max())
-    out["da rows off (kernel/plain)"] = tuple(
-        int(((x.double() - g64[0]).abs() > big).any(1).sum())
-        for x in (grads[0], gref[0]))
     return out
 
 
@@ -511,119 +478,109 @@ def compare_kernels(K, stats: dict) -> None:
 
     bad: list = []
     for case in KERNEL_CASES:
-        n, H, L2, shift, rtol32, rtol64 = case
+        n, H, L2, shift = case
         main_shape = case == KERNEL_CASES[0]
         args = pge_inputs(n, H, L2, seed=n + L2, beta_shift=shift)
         R = torch.randn(n, n, device="cuda",
                         generator=torch.Generator("cuda").manual_seed(7))
         # the exact function's gradient: fp32 operands, float64 arithmetic
         g64 = plain_grads(K, args, R, n, False, torch.float64)
-        for bf16 in (False, True):
-            tol_bwd = RTOL_BWD_BF16 if bf16 else (rtol32, 1e-5)
-            tag = f"n={n} H={H} L2={L2} beta+{shift:g} bf16={bf16}"
-            out, ws, stat = K.pge_fwd(*args, n, bf16)
+        tag = f"n={n} H={H} L2={L2} beta+{shift:g}"
+        out, ws, stat = K.pge_fwd(*args, n)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            ref = K.pair_scores_plain(*args, n)
+        e_f = check_close(f"fwd {tag}", out, ref, TOL_FWD, bad)
+        if main_shape:   # the launch kind without the workspace
+            bare, _, _ = K.pge_fwd(*args, n, keep=False)
             torch.cuda.synchronize()
+            check_close(f"fwd no-grad {tag}", bare, ref, TOL_FWD, bad)
+            if not torch.equal(bare, out):
+                bad.append(f"fwd {tag}: the two launch kinds differ")
+        grads = K.pge_bwd(*args, R, ws, stat, n)
+        torch.cuda.synchronize()
+        gref = plain_grads(K, args, R, n, True)
+        e64 = f64_distances(grads, gref, g64, bad, tag)
+        errs, rel = {}, {}
+        for name, got, want in zip(GRAD_NAMES, grads, gref):
+            # dbmid is analytically 0 (BatchNorm shift invariance): its
+            # scale is that of dbeta, the same kind of sum
+            scale = gref[5] if name == "dbmid" else want
+            off: list = []
+            errs[name] = check_close(f"bwd {name} {tag}", got, want,
+                                     TOL_BWD, off, scale)
+            if off and name in ("dgamma", "dbeta") and \
+                    e64[name][0] <= e64[name][1]:
+                off = []       # a cancelling sum, kernel nearer f64
+            bad += off
+            if scale.numel():
+                rel[name] = errs[name] / max(float(scale.abs().max()), 1e-30)
+        e_b = max(errs.values())
+        worst = max(rel, key=rel.get)
+        line = (f"pge {tag}: fwd max|Δ| {e_f:.2e}; bwd max|Δ| "
+                + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                + f" (largest / max|ref|: {rel[worst]:.2e}, {worst})"
+                + "; |kernel - f64| / |plain - f64|: "
+                + ", ".join(f"{k} {a:.3g}/{b:.3g}"
+                            for k, (a, b) in e64.items()))
+        if main_shape:
+            b = pge_bounds(n, H, L2)
+            fwd_ms = timed_ms(lambda: K.pge_fwd(*args, n), 10)
+            ws_bytes = K.LAST_FWD["workspace_bytes"]
+            bare_ms = timed_ms(lambda: K.pge_fwd(*args, n, keep=False), 10)
+            bare_bytes = K.LAST_FWD["workspace_bytes"]
+            # the kept workspace's z writes alone (every padded pair of
+            # every tile), at the HBM rate
+            ws_bound = 1e3 * 4 * K._workspace_sizes(n, H, L2)[0] / \
+                PEAK_BYTES
+            bwd_ms = timed_ms(lambda: K.pge_bwd(*args, R, ws, stat, n), 5)
             with torch.no_grad():
-                ref = K.pair_scores_plain(*args, n, bf16)
-            e_f = check_close(f"fwd {tag}", out, ref, TOL_FWD[bf16], bad)
-            if main_shape:   # the launch kind without the workspace
-                bare, _, _ = K.pge_fwd(*args, n, bf16, keep=False)
-                torch.cuda.synchronize()
-                check_close(f"fwd no-grad {tag}", bare, ref, TOL_FWD[bf16],
-                            bad)
-                if not torch.equal(bare, out):
-                    bad.append(f"fwd {tag}: the two launch kinds differ")
-            grads = K.pge_bwd(*args, R, ws, stat, n, bf16)
-            torch.cuda.synchronize()
-            gref = plain_grads(K, args, R, n, bf16)
-            e64 = f64_distances(grads, gref, g64, None if bf16 else rtol64,
-                                bad, tag, rows=not bf16)
-            errs, rel = {}, {}
-            for name, got, want in zip(GRAD_NAMES, grads, gref):
-                # dbmid is analytically 0 (BatchNorm shift invariance):
-                # its scale is that of dbeta, the same kind of sum
-                scale = gref[5] if name == "dbmid" else want
-                off: list = []
-                errs[name] = check_close(f"bwd {name} {tag}", got, want,
-                                         tol_bwd, off, scale)
-                if off and bf16 and name in ("dgamma", "dbeta") and \
-                        e64[name][0] <= e64[name][1]:
-                    off = []       # a cancelling sum, kernel nearer f64
-                bad += off
-                if scale.numel():
-                    rel[name] = errs[name] / max(
-                        float(scale.abs().max()), 1e-30)
-            e_b = max(errs.values())
-            worst = max(rel, key=rel.get)
-            line = (f"pge {tag}: fwd max|Δ| {e_f:.2e}; bwd max|Δ| "
-                    + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-                    + f" (largest / max|ref|: {rel[worst]:.2e}, {worst})"
-                    + "; |kernel - f64| / |plain - f64|: "
-                    + ", ".join(f"{k} {a:.3g}/{b:.3g}"
-                                for k, (a, b) in e64.items()))
-            if main_shape:
-                b = pge_bounds(n, H, L2, bf16)
-                fwd_ms = timed_ms(lambda: K.pge_fwd(*args, n, bf16), 10)
-                ws_bytes = K.LAST_FWD["workspace_bytes"]
-                bare_ms = timed_ms(
-                    lambda: K.pge_fwd(*args, n, bf16, keep=False), 10)
-                bare_bytes = K.LAST_FWD["workspace_bytes"]
-                # the kept workspace's z writes alone (every padded pair
-                # of every tile), at the HBM rate
-                ws_bound = 1e3 * 4 * K._workspace_sizes(n, H, L2)[0] / \
-                    PEAK_BYTES
-                bwd_ms = timed_ms(
-                    lambda: K.pge_bwd(*args, R, ws, stat, n, bf16), 5)
-                with torch.no_grad():
-                    plain_fwd = timed_ms(
-                        lambda: K.pair_scores_plain(*args, n, bf16), 3)
-                plain_bwd = plain_vjp_ms(K, args, R, n, bf16)
-                lib = K.build()
-                line += (f"; fwd keeping the workspace {fwd_ms:.3f} ms "
-                         f"({ws_bytes} bytes of workspace; its z writes "
-                         f"alone {ws_bound:.3f} ms at the HBM rate), without "
-                         f"{bare_ms:.3f} ms ({bare_bytes} bytes), equal bit "
-                         f"for bit (plain {plain_fwd:.3f}, "
-                         f"bound {b['fwd']:.3f} by {b['fwd_by']}); bwd "
-                         f"{bwd_ms:.3f} ms (plain vjp {plain_bwd:.3f}, "
-                         f"bound {b['bwd']:.3f} by {b['bwd_by']}; "
-                         f"{K.LAST_BWD['scratch_bytes']} bytes of "
-                         f"device-memory scratch a launch, "
-                         f"{K.LAST_BWD['grid']} blocks of "
-                         f"{lib.pge_bwd_smem_bytes(H, int(bf16))} bytes of "
-                         f"shared memory, "
-                         f"{K.blocks_per_sm(lib, True, bf16, H)} an SM)")
-                if bf16:   # the main path's precision
-                    stats["pge_fwd"] = dict(
-                        max_abs_err=e_f, ms=fwd_ms, plain_ms=plain_fwd,
-                        bound_ms=b["fwd"], bound_by=b["fwd_by"],
-                        ms_nograd=bare_ms, workspace_bound_ms=ws_bound)
-                    stats["pge_bwd"] = dict(
-                        max_abs_err=e_b, ms=bwd_ms, plain_ms=plain_bwd,
-                        bound_ms=b["bwd"], bound_by=b["bwd_by"])
-            elif bf16 and (n, H, L2) in IND_PGE_SHAPES:
-                # an inductive twin's shape, at the main path's precision
-                b = pge_bounds(n, H, L2, bf16)
-                fwd_ms = timed_ms(lambda: K.pge_fwd(*args, n, bf16), 10)
-                bwd_ms = timed_ms(
-                    lambda: K.pge_bwd(*args, R, ws, stat, n, bf16), 10)
-                with torch.no_grad():
-                    plain_fwd = timed_ms(
-                        lambda: K.pair_scores_plain(*args, n, bf16), 3)
-                plain_bwd = plain_vjp_ms(K, args, R, n, bf16)
-                line += (f"; fwd keeping the workspace {fwd_ms:.4f} ms "
-                         f"(plain {plain_fwd:.4f}, bound {b['fwd']:.4f} by "
-                         f"{b['fwd_by']}); bwd {bwd_ms:.4f} ms (plain vjp "
-                         f"{plain_bwd:.4f}, bound {b['bwd']:.4f} by "
-                         f"{b['bwd_by']})")
-                stats.setdefault("pge_ind", {})[f"n{n}_H{H}"] = dict(
-                    fwd_ms=fwd_ms, bwd_ms=bwd_ms, plain_fwd_ms=plain_fwd,
-                    plain_bwd_ms=plain_bwd, fwd_bound_ms=b["fwd"],
-                    bwd_bound_ms=b["bwd"])
-            log(line)
-            del grads, gref, out, ref, ws, stat
-            torch.cuda.empty_cache()
-        del g64
+                plain_fwd = timed_ms(
+                    lambda: K.pair_scores_plain(*args, n), 3)
+            plain_bwd = plain_vjp_ms(K, args, R, n)
+            lib = K.build()
+            line += (f"; fwd keeping the workspace {fwd_ms:.3f} ms "
+                     f"({ws_bytes} bytes of workspace; its z writes "
+                     f"alone {ws_bound:.3f} ms at the HBM rate), without "
+                     f"{bare_ms:.3f} ms ({bare_bytes} bytes), equal bit "
+                     f"for bit (plain {plain_fwd:.3f}, "
+                     f"bound {b['fwd']:.3f} by {b['fwd_by']}); bwd "
+                     f"{bwd_ms:.3f} ms (plain vjp {plain_bwd:.3f}, "
+                     f"bound {b['bwd']:.3f} by {b['bwd_by']}; "
+                     f"{K.LAST_BWD['scratch_bytes']} bytes of "
+                     f"device-memory scratch a launch, "
+                     f"{K.LAST_BWD['grid']} blocks of "
+                     f"{lib.pge_bwd_smem_bytes(H)} bytes of "
+                     f"shared memory, "
+                     f"{K.blocks_per_sm(lib, True, H)} an SM)")
+            stats["pge_fwd"] = dict(
+                max_abs_err=e_f, ms=fwd_ms, plain_ms=plain_fwd,
+                bound_ms=b["fwd"], bound_by=b["fwd_by"],
+                ms_nograd=bare_ms, workspace_bound_ms=ws_bound)
+            stats["pge_bwd"] = dict(
+                max_abs_err=e_b, ms=bwd_ms, plain_ms=plain_bwd,
+                bound_ms=b["bwd"], bound_by=b["bwd_by"])
+        elif (n, H, L2) in IND_PGE_SHAPES:
+            # an inductive twin's shape
+            b = pge_bounds(n, H, L2)
+            fwd_ms = timed_ms(lambda: K.pge_fwd(*args, n), 10)
+            bwd_ms = timed_ms(lambda: K.pge_bwd(*args, R, ws, stat, n), 10)
+            with torch.no_grad():
+                plain_fwd = timed_ms(
+                    lambda: K.pair_scores_plain(*args, n), 3)
+            plain_bwd = plain_vjp_ms(K, args, R, n)
+            line += (f"; fwd keeping the workspace {fwd_ms:.4f} ms "
+                     f"(plain {plain_fwd:.4f}, bound {b['fwd']:.4f} by "
+                     f"{b['fwd_by']}); bwd {bwd_ms:.4f} ms (plain vjp "
+                     f"{plain_bwd:.4f}, bound {b['bwd']:.4f} by "
+                     f"{b['bwd_by']})")
+            stats.setdefault("pge_ind", {})[f"n{n}_H{H}"] = dict(
+                fwd_ms=fwd_ms, bwd_ms=bwd_ms, plain_fwd_ms=plain_fwd,
+                plain_bwd_ms=plain_bwd, fwd_bound_ms=b["fwd"],
+                bwd_bound_ms=b["bwd"])
+        log(line)
+        del grads, gref, out, ref, ws, stat, g64
+        torch.cuda.empty_cache()
     if bad:
         fail("kernels disagree with their plain version:\n  "
              + "\n  ".join(bad))
@@ -684,13 +641,13 @@ class EpochTimer:
                           if c > spmm0.get(d, 0)})
         return out
 
-    def rate(self, steps_per_epoch: int) -> tuple:
-        """(outer steps/s, mean wall ms of an epoch) over the ``TIMED``
-        epochs after the warm-up epoch 0."""
+    def mean_wall_ms(self) -> float:
+        """Mean wall ms of the ``TIMED`` epochs after the warm-up epoch 0
+        (each synchronized at both ends)."""
         secs = self.seconds[1:1 + TIMED]
         if len(secs) != TIMED:
             fail(f"{len(self.seconds)} epochs timed, {1 + TIMED} needed")
-        return steps_per_epoch * TIMED / sum(secs), 1e3 * sum(secs) / TIMED
+        return 1e3 * sum(secs) / TIMED
 
 
 def device_time_by_kernel(prof) -> tuple:
@@ -714,7 +671,7 @@ def device_time_by_kernel(prof) -> tuple:
 
 # The port's kernels by the names their entries carry in a trace, and the
 # launch counters that count them (kernel module, key).
-TRACED = {"pge_fwd": (("pge_fwd_kernel", "pge_fwd_simt_kernel"), "K",
+TRACED = {"pge_fwd": (("pge_fwd_kernel",), "K",
                       ("pge_fwd_ws", "pge_fwd_nows")),
           "pge_bwd": (("pge_bwd_kernel",), "K", ("pge_bwd",)),
           "spmm_blocked": (("spmm_blocked_kernel",), "SB",
@@ -789,8 +746,9 @@ def profiled(fn, host: bool = False, tag: str = "") -> tuple:
 
 def run_gcond(K, SB, ds, save_path: str) -> tuple:
     """GCond through create_reducer(...).reduce(): epoch 0 warms up,
-    epoch 1 is timed (then the checkpoint evaluation), epoch 2 runs under
-    torch.profiler for the device-time breakdown."""
+    epoch 1's wall feeds the idle-share estimate (then the checkpoint
+    evaluation), epoch 2 runs under torch.profiler for the device-time
+    breakdown."""
     import torch
 
     from graphslim_tpu_torch.config import Args, finalize
@@ -837,10 +795,9 @@ def run_gcond(K, SB, ds, save_path: str) -> tuple:
     if feat.shape != (1354, 128) or not torch.isfinite(feat).all() or \
             not torch.isfinite(red.adj).all():
         fail("condensed graph not finite or of the wrong shape")
-    sps = args.outer_loop / timer.seconds[1]
-    log(f"gcond ogbn-arxiv: n_syn {eng.n_syn}, {outer} outer steps, "
-        f"{sps:.3f} outer steps/s (timed epoch 1; epochs "
-        f"{[round(s, 3) for s in timer.seconds]} s, reduce() {wall:.1f} s), "
+    log(f"gcond ogbn-arxiv: n_syn {eng.n_syn}, {outer} outer steps "
+        f"(epochs {[round(s, 3) for s in timer.seconds]} s, reduce() "
+        f"{wall:.1f} s), "
         f"epoch losses {[round(x, 5) for x in losses]}, launches "
         f"{launches} (fwd = {outer} keeping the workspace + {outer} "
         f"inner_adj + {extra} inference_adj without)")
@@ -861,7 +818,7 @@ def run_gcond(K, SB, ds, save_path: str) -> tuple:
         f"pge_fwd {pge['pge_fwd']:.1f} ms, pge_bwd {pge['pge_bwd']:.1f} ms "
         f"({(pge['pge_fwd'] + pge['pge_bwd']) / busy:.3f} of busy); top: "
         + "; ".join(f"{k[:48]} {v:.1f} ms" for k, v in top))
-    return red, launches, sps
+    return red, launches
 
 
 # ---------------------------------------------------------------------------
@@ -1347,7 +1304,8 @@ def run_coresets(SB, SG, G) -> tuple:
 # ---------------------------------------------------------------------------
 
 # Phase 9's DosCond, GCondX and GCDM runs: epoch 0 warms up, the TIMED
-# epochs after it give the rate, the last is profiled.
+# epochs after it give the mean wall of the idle-share estimate, the last
+# is profiled.
 TIMED = 5
 EPOCHS = TIMED + 2
 
@@ -1411,7 +1369,7 @@ def run_condensers(K, SB, ds, tmp: str) -> dict:
         return {k: v - before[k] for k, v in K.LAUNCHES.items()}
 
     # --- DosCond: 7 epochs, a checkpoint at epoch 1, then a resume -----
-    # (epoch 0 warms up, epochs 1-5 give the rate, epoch 6 is profiled)
+    # (epoch 0 warms up, epochs 1-5 the mean wall, epoch 6 is profiled)
     args = condense_args("doscond", tmp, EPOCHS, (1,))
     eng = create_reducer("doscond", ds, args)
     if (eng.n_syn, args.hidden, eng.pge.cfg.nhid, eng.args.inner_loop) != \
@@ -1438,11 +1396,9 @@ def run_condensers(K, SB, ds, tmp: str) -> dict:
     fwd = sum(v for k, v in kern.items() if "pge::pge_fwd_kernel" in k)
     bwd = sum(v for k, v in kern.items() if "pge::pge_bwd_kernel" in k)
     acc, std, t_eval, losses = evaluate_result(ds, args, red, eng)
-    rate, wall = timer.rate(args.outer_loop)
+    wall = timer.mean_wall_ms()
     log(f"doscond ogbn-arxiv (SGC, ours, lr_adj 0.02, lr_feat 0.01, outer "
-        f"5, inner 0): n_syn {eng.n_syn}, {steps} outer steps, "
-        f"{rate:.3f} outer steps/s (epochs 1-{EPOCHS - 2}, "
-        f"{TIMED * args.outer_loop} steps; epochs "
+        f"5, inner 0): n_syn {eng.n_syn}, {steps} outer steps (epochs "
         f"{[round(x, 3) for x in timer.seconds]} s), PGE "
         f"launches {launches} ({inference.n} inference_adj), epoch losses "
         f"{[round(x, 5) for x in losses]}; profiled epoch {EPOCHS - 1}: "
@@ -1487,12 +1443,13 @@ def run_condensers(K, SB, ds, tmp: str) -> dict:
     red = eng.reduce(ds)
     if any(pge_since(before).values()) or eng.pge is not None:
         fail(f"gcondx launched the PGE: {pge_since(before)}")
+    if len(timer.seconds) != EPOCHS:
+        fail(f"gcondx: {len(timer.seconds)} epochs run, {EPOCHS} expected")
     acc, std, t_eval, losses = evaluate_result(ds, args, red, eng)
-    rate, _ = timer.rate(args.outer_loop)
     log(f"gcondx ogbn-arxiv (SGC ntrans 2, mse, lr_feat 0.1, outer 5, "
         f"inner {args.inner_loop}): {args.epochs * args.outer_loop} outer "
-        f"steps, {rate:.3f} outer steps/s (epochs 1-{EPOCHS - 2}; epochs "
-        f"{[round(x, 3) for x in timer.seconds]} s), PGE launches 0, "
+        f"steps (epochs {[round(x, 3) for x in timer.seconds]} s), PGE "
+        f"launches 0, "
         f"epoch losses {[round(x, 5) for x in losses]}; evaluate GCN "
         f"{acc:.4f} ± {std:.4f} ({t_eval:.1f} s)")
     del eng, red
@@ -1514,11 +1471,9 @@ def run_condensers(K, SB, ds, tmp: str) -> dict:
     busy = sum(kern.values())
     spmm_ms = sum(v for k, v in kern.items() if "spmm_blocked_kernel" in k)
     acc, std, t_eval, losses = evaluate_result(ds, args, red, eng)
-    rate, wall = timer.rate(args.outer_loop)
+    wall = timer.mean_wall_ms()
     log(f"gcdm ogbn-arxiv (GCN, l1, lr_feat 0.01, outer 5, inner 1, hidden "
-        f"256): {args.epochs * args.outer_loop} outer steps, "
-        f"{rate:.3f} outer steps/s (epochs 1-{EPOCHS - 2}, "
-        f"{TIMED * args.outer_loop} steps; epochs "
+        f"256): {args.epochs * args.outer_loop} outer steps (epochs "
         f"{[round(x, 3) for x in timer.seconds]} s), SpMM "
         f"launches by width an epoch {timer.spmm[0]} ({in_reduce} in "
         f"reduce() with the checkpoint's evaluation), epoch losses "
@@ -1555,10 +1510,6 @@ def run_condensers(K, SB, ds, tmp: str) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if len(marks) != args.outer_loop:
         fail(f"sgdd: {len(marks)} outer steps, expected {args.outer_loop}")
-    # steps 2..19 from one step's start to the next, less step 11 (under
-    # the profiler) and step 12 (which stops it)
-    steps = [marks[k] - marks[k - 1] for k in range(2, args.outer_loop)
-             if k not in (11, 12)]
     linalg = {}
     for e in prof.key_averages():
         key = e.key.lower()
@@ -1570,11 +1521,9 @@ def run_condensers(K, SB, ds, tmp: str) -> dict:
             linalg[e.key] = (e.cpu_time_total / 1e3, dev / 1e3, e.count)
     acc, std, t_eval, losses = evaluate_result(ds, args, red, eng)
     log(f"sgdd ogbn-arxiv (SGC ntrans 2, ours, outer 20, inner 3, mx_size "
-        f"1000, opt_scale 1e-12; IGNR n {eng.n_syn}): "
-        f"{len(steps) / sum(steps):.3f} outer steps/s (steps 2-19 but 11 "
-        f"and 12, {1e3 * sum(steps) / len(steps):.1f} ms a step; the "
-        f"epoch, with step 1's warm-up and the profiled step, "
-        f"{timer.seconds[0]:.2f} s), peak device memory {peak:.2f} GiB, "
+        f"1000, opt_scale 1e-12; IGNR n {eng.n_syn}): the epoch, with "
+        f"step 1's warm-up and the profiled step, {timer.seconds[0]:.2f} "
+        f"s, peak device memory {peak:.2f} GiB, "
         f"epoch loss {losses}; step 11 under the profiler "
         f"{1e3 * (marks[11] - marks[10]):.1f} ms, its decomposition ops "
         f"(host ms / device ms / calls): "
@@ -1882,9 +1831,8 @@ def run_clusterers(SB, ds, tmp: str, stats: dict) -> dict:
         MS.build_skeletons = build
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     scorer = dict(ES.LAUNCHES)
-    entries = {k: P.counters().get(k, 0) - counted.get(k, 0)
-               for k in ("generator.scored_entries",
-                         "generator.fused_entries")}
+    scored = P.counters().get("generator.scored_entries", 0) - \
+        counted.get("generator.scored_entries", 0)
     timer = timers["t"]
     if len(timer.seconds) != 3 or tuple(red.adj.shape) != \
             (16, eng.n_syn, eng.n_syn):
@@ -1897,9 +1845,11 @@ def run_clusterers(SB, ds, tmp: str, stats: dict) -> dict:
             scorer["edge_scorer_fwd"] < 2 * steps + 1:
         fail(f"msgc: edge scorer launches {scorer} over {steps} outer "
              f"steps")
-    if not 0 < entries["generator.fused_entries"] == \
-            entries["generator.scored_entries"]:
-        fail(f"msgc: the scorer's kernels scored {entries} entries")
+    # every generator call scored the skeletons' entries through a
+    # forward chain of the kernels
+    if not 0 < scored == scorer["edge_scorer_fwd"] * eng.rows.shape[0]:
+        fail(f"msgc: {scored} entries scored, {scorer['edge_scorer_fwd']} "
+             f"forward chains over {eng.rows.shape[0]} entries")
     kern = timer.kernels
     busy = sum(kern.values())
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:5]
@@ -1908,13 +1858,12 @@ def run_clusterers(SB, ds, tmp: str, stats: dict) -> dict:
         f"16, outer 20, inner 3, threshold 0.01; 3 of 500 epochs, a "
         f"checkpoint at epoch 1, epoch 2 profiled): skeletons "
         f"{built['entries']} entries built on the host in "
-        f"{built['seconds']:.2f} s, epoch 1 "
-        f"{args.outer_loop / timer.seconds[1]:.3f} outer steps/s (epochs "
+        f"{built['seconds']:.2f} s (epochs "
         f"{[round(x, 3) for x in timer.seconds]} s), peak device memory "
         f"{peak:.2f} GiB, epoch losses {[round(x, 4) for x in losses]}, "
         f"edge scorer launches {scorer['edge_scorer_fwd']} forward / "
         f"{scorer['edge_scorer_bwd']} backward chains, "
-        f"{entries['generator.fused_entries']} entries scored by them; "
+        f"{scored} entries scored by them; "
         f"profiled epoch: device busy {busy:.1f} ms (idle share estimated "
         f"as 1 - busy / epoch 1's wall: "
         f"{1 - busy / (1e3 * timer.seconds[1]):.3f}), top: "
@@ -2146,7 +2095,7 @@ def run_distillers(K, SB, SG, ds, tmp: str, stats: dict) -> dict:
     # steps 2-59 less the profiled step 40 and step 41 after it
     timed = [x for i, x in enumerate(tm["step"].seconds)
              if i >= 2 and i not in (40, 41)]
-    rate = len(timed) / sum(timed)
+    wall = 1e3 * sum(timed) / len(timed)
     kern = tm["step"].kernels
     busy = sum(kern.values())
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:4]
@@ -2154,12 +2103,11 @@ def run_distillers(K, SB, SG, ds, tmp: str, stats: dict) -> dict:
         f"BN, dropout 0.5, {min(1000, max(2 * args.eval_epochs, 200))} "
         f"epochs; PGE nhid {eng.pge.cfg.nhid}; 60 of 3001 steps, a "
         f"checkpoint at step 30): teacher {tm['teacher'].seconds[0]:.2f} s, "
-        f"{rate:.3f} steps/s over steps 2-59 less 40-41 "
-        f"({1e3 / rate:.2f} ms a step), PGE launches {pge} (one "
+        f"PGE launches {pge} (one "
         f"forward keeping the workspace and one backward a step, one "
         f"no-grad forward a checkpoint); profiled step 40: device busy "
-        f"{busy:.2f} ms (idle share estimated as 1 - busy / mean step "
-        f"wall: {1 - busy * rate / 1e3:.3f}), top: "
+        f"{busy:.2f} ms (idle share estimated as 1 - busy / mean wall of "
+        f"steps 2-59 less 40-41: {1 - busy / wall:.3f}), top: "
         + "; ".join(f"{k[:50]} {v:.2f} ms" for k, v in top)
         + f"; {summary}")
     del eng, red
@@ -2490,9 +2438,8 @@ def run_ind_gcond(K, SB, SG, ds, tmp: str, epochs: int, n_syn: int,
     # the outer steps of the unprofiled epochs past the first two steps
     ol = args.outer_loop
     at = steps.at[2:(epochs - 1) * ol]
-    rate = (len(at) - 1) / (at[-1] - at[0])
     busy = sum(timer.kernels.values())
-    wall_unprof = ol / rate
+    wall_unprof = ol * (at[-1] - at[0]) / (len(at) - 1)
     count = Launches(K, SB, SG)
     t0 = time.perf_counter()
     (acc, std), _ = Evaluator(ds, args).evaluate(red, model)
@@ -2504,12 +2451,12 @@ def run_ind_gcond(K, SB, SG, ds, tmp: str, epochs: int, n_syn: int,
             f" outer x {args.inner_loop} inner, ntrans {args.ntrans}, lr "
             f"{args.lr_feat}/{args.lr_adj}, fanouts {list(eng.fanouts)}, "
             f"{epochs} epochs): n_syn {eng.n_syn}, PGE nhid "
-            f"{eng.pge.cfg.nhid}, reduce {t_red:.2f} s, {rate:.3f} outer "
-            f"steps/s (steps 2-{(epochs - 1) * ol - 1}, unprofiled), "
-            f"launches {launches}, peak {peak:.2f} GiB, profiled epoch "
+            f"{eng.pge.cfg.nhid}, reduce {t_red:.2f} s, launches "
+            f"{launches}, peak {peak:.2f} GiB, profiled epoch "
             f"{epochs - 1}: busy {busy:.1f} ms, idle share "
-            f"{1 - busy / (1e3 * wall_unprof):.3f} (1 - busy / the "
-            f"unprofiled epoch's wall); losses "
+            f"{1 - busy / (1e3 * wall_unprof):.3f} (1 - busy / an epoch's "
+            f"wall over the unprofiled steps 2-{(epochs - 1) * ol - 1}); "
+            f"losses "
             f"{[round(x / (eng.nclass * ol), 5) for x in losses]}; evaluate "
             f"{model} {args.run_eval} seeds x 300 epochs on the test "
             f"subgraph {t_eval:.2f} s (launches {count.since()}), "
@@ -2518,10 +2465,10 @@ def run_ind_gcond(K, SB, SG, ds, tmp: str, epochs: int, n_syn: int,
 
 
 # Phase 12's other reducers on the flickr twin, with their depth cuts and
-# the hook whose call is profiled: ``_epoch`` (the last epoch; the rate from
-# the others), a named call of each outer step (SimGC's whole step; SFGC's
-# and GEOM's unrolled forward, under a device-only trace: the rate from
-# the calls' start times), the call numbered profiled; or None (the whole
+# the hook whose call is profiled: ``_epoch`` (the last epoch; the idle
+# share against the others' mean wall), a named call of each outer step
+# (SimGC's whole step; SFGC's and GEOM's unrolled forward, under a
+# device-only trace), the call numbered profiled; or None (the whole
 # reduce).  A checkpoint runs after the last epoch.
 FLICKR_RUNS = [
     ("random", {}, None), ("kcenter_sample", {}, None),
@@ -2649,26 +2596,13 @@ def run_ind(K, SB, SG, tmp: str, stats: dict, keep=None) -> dict:
         if timer is not None:
             busy = sum(timer.kernels.values())
             unprof = timer.seconds[:-1]
-            steps_per_epoch = max(getattr(args, "outer_loop", 1), 1)
-            rate = f"{steps_per_epoch * len(unprof) / sum(unprof):.3f} " \
-                f"outer steps/s (epochs 0-{len(unprof) - 1}, unprofiled)"
             idle = 1 - busy / (1e3 * sum(unprof) / len(unprof))
             how = f"profiled epoch {args.epochs - 1}"
         elif stamps is not None:
             busy = sum(stamps.kernels.values())
-            if hook[0] == "step":      # the whole step: its own seconds
-                secs = [x for i, x in enumerate(stamps.seconds)
-                        if i not in (hook[1], hook[1] + 1)]
-            else:                      # from one call's start to the next
-                at = stamps.at
-                secs = [b - a for i, (a, b) in enumerate(zip(at, at[1:]))
-                        if i != hook[1]]
-            rate = f"{len(secs) / sum(secs):.3f} outer steps/s (steps " \
-                f"less the profiled one)"
             idle = 1 - busy / (1e3 * stamps.seconds[hook[1]])
             how = f"profiled {hook[0]} call {hook[1]} (its own wall)"
         else:
-            rate = "n/a"
             idle = 1 - busy / (1e3 * wall)
             how = "profiled reduce (device trace; wall under it)"
         count = Launches(K, SB, SG)
@@ -2685,7 +2619,7 @@ def run_ind(K, SB, SG, tmp: str, stats: dict, keep=None) -> dict:
         return eng, red, (
             f"{tag} flickr (ind, r={args.reduction_rate}, cut "
             f"{ {k: v for k, v in cut.items() if k != 'agg'} }): n_syn "
-            f"{red.feat.shape[0]}, reduce {t_red:.2f} s, {rate}, launches "
+            f"{red.feat.shape[0]}, reduce {t_red:.2f} s, launches "
             f"{launches}, peak {peak:.2f} GiB, {how}: busy {busy:.1f} ms, "
             f"idle share {idle:.3f}; evaluate GCN {args.run_eval} seed(s) "
             f"x {args.eval_epochs} epochs {t_eval:.2f} s (launches {ev}), "
@@ -4272,8 +4206,7 @@ def dist_products(SB, adj, tables: dict, stats: dict) -> None:
         fail("sharded products disagree:\n  " + "\n  ".join(bad))
 
 
-def dist_gcond(K, SB, SG, ds, tmp: str, totals: dict,
-               phase4_sps) -> None:
+def dist_gcond(K, SB, SG, ds, tmp: str, totals: dict) -> None:
     """(c): GCond on the arxiv twin with the matching sharded over a mesh
     of one rank (NCCL), both feature modes: the first outer step's loss
     against the unsharded engine's from the same generator state; one
@@ -4307,7 +4240,6 @@ def dist_gcond(K, SB, SG, ds, tmp: str, totals: dict,
         if not rel <= 1e-5:
             fail(f"dist (c) {mode}: sharded loss {losses[1]} vs unsharded "
                  f"{losses[0]} ({rel:.2e} relative)")
-        timer = EpochTimer(eng, K, SB)
         red, secs, launches, widths = counted(
             K, SB, SG, totals, lambda: eng.reduce(ds))
         outer = args.epochs * args.outer_loop
@@ -4316,13 +4248,10 @@ def dist_gcond(K, SB, SG, ds, tmp: str, totals: dict,
         pge_rule(dict(K.LAUNCHES), outer, outer + 1)
         if not torch.isfinite(red.feat).all():
             fail(f"dist (c) {mode}: non-finite condensed features")
-        sps = args.outer_loop / timer.seconds[1]
         log(f"dist (c) gcond arxiv, matching sharded over 1 rank (NCCL), "
             f"features {mode}: first loss {losses[1]:.6f} (unsharded "
             f"{losses[0]:.6f}, {rel:.1e} relative); {outer} outer steps "
-            f"in {secs:.2f} s, {sps:.3f} outer steps/s (epoch 1; phase 4 "
-            + (f"{phase4_sps:.3f})" if phase4_sps else "not run)")
-            + f"; launches {launches}, SpMM by width {widths}")
+            f"in {secs:.2f} s; launches {launches}, SpMM by width {widths}")
         del eng, red
         torch.cuda.empty_cache()
 
@@ -4384,7 +4313,7 @@ def dist_evaluator(K, SB, SG, G, ds, totals: dict, reddit=None) -> None:
 
 
 def run_dist(K, SB, SG, G, ds, tmp: str, stats: dict,
-             phase4_sps=None, reddit=None) -> dict:
+             reddit=None) -> dict:
     """Phase 17 → its launches on the main path ((c) and (d)); ``reddit``
     is the twin phase 12 kept loaded, if it ran."""
     import torch
@@ -4399,7 +4328,7 @@ def run_dist(K, SB, SG, G, ds, tmp: str, stats: dict,
         tables = dist_tables(G, adj, stats)
         dist_products(SB, adj, tables, stats)
         del tables
-        dist_gcond(K, SB, SG, ds, tmp, totals, phase4_sps)
+        dist_gcond(K, SB, SG, ds, tmp, totals)
         dist_evaluator(K, SB, SG, G, ds, totals, reddit)
         reddit = None
     finally:
@@ -4520,7 +4449,7 @@ def main() -> None:
 
     # --- phase 4 ---------------------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
-        red, launches, gcond_sps = run_gcond(K, SB, ds, tmp)
+        red, launches = run_gcond(K, SB, ds, tmp)
         saved = os.path.join(tmp, "reduced_graph", "gcond",
                              "ogbn-arxiv_0.01_1.npz")
         if not os.path.exists(saved):
@@ -4606,7 +4535,7 @@ def main() -> None:
     # --- phase 17 --------------------------------------------------------
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        distp = run_dist(K, SB, SG, G, ds, tmp, stats, gcond_sps,
+        distp = run_dist(K, SB, SG, G, ds, tmp, stats,
                          kept.pop("reddit"))
     lap("phase 17")
     log_windows()

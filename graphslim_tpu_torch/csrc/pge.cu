@@ -49,7 +49,7 @@ static cudaError_t launch_fwd(const pge::Params& A, float* out, int keep,
   return cudaGetLastError();
 }
 
-// The tensor-core forward's kernel at width H (its column-group width).
+// The forward's kernel at width H (its column-group width).
 static const void* fwd_kernel(int H) {
   switch (pge::fwd_nbg(H)) {
     case 1: return (const void*)pge::pge_fwd_kernel<1>;
@@ -59,28 +59,23 @@ static const void* fwd_kernel(int H) {
   }
 }
 
-// Widths the tensor-core forward takes: multiples of 64 whose operands fit
-// a block's shared memory (up to 320).
+// Widths the forward takes: multiples of 64 whose operands fit a block's
+// shared memory (up to 320).
 static bool fwd_width_ok(int H) {
   return H >= 64 && H % 64 == 0 &&
          pge::fwd_smem_bytes(H) <= pge::MAX_SMEM_BLOCK;
 }
 
-// keep: ws and stat are per tile (the backward reads them); else the
-// tensor-core version takes (L2 - 1) x P x H floats a block in ws and no
-// statistics.  The fp32 version writes the per-tile ones in every launch.
+// keep: ws and stat are per tile (the backward reads them); else ws holds
+// (L2 - 1) x P x H floats a block and there are no statistics.
 extern "C" int pge_fwd(const float* a, const float* b, const float* wmid,
                        const float* bmid, const float* gamma,
                        const float* beta, const float* wlast, float* out,
                        float* ws, float* stat, int n, int H, int L2,
-                       int grid, int bf16, int keep, void* stream) {
+                       int grid, int keep, void* stream) {
   pge::Params A = make_params(a, b, wmid, bmid, gamma, beta, wlast, ws,
                               stat, n, H, L2);
   cudaStream_t s = (cudaStream_t)stream;
-  if (!bf16) {
-    pge::pge_fwd_simt_kernel<<<grid, pge::NT, 0, s>>>(A, out);
-    return (int)cudaGetLastError();
-  }
   if (!fwd_width_ok(H)) return (int)cudaErrorInvalidValue;
   switch (pge::fwd_nbg(H)) {
     case 1: return (int)launch_fwd<1>(A, out, keep, grid, s);
@@ -90,21 +85,20 @@ extern "C" int pge_fwd(const float* a, const float* b, const float* wmid,
   }
 }
 
-// Bytes of dynamic shared memory of a tensor-core forward block at width
-// H, or -1 for a width it does not take.
+// Bytes of dynamic shared memory of a forward block at width H, or -1 for
+// a width it does not take.
 extern "C" int pge_fwd_smem_bytes(int H) {
   return fwd_width_ok(H) ? pge::fwd_smem_bytes(H) : -1;
 }
 
 // Opts the backward kernel into its dynamic shared memory (above 48 KB)
-// and the largest shared-memory carve-out, so that two blocks fit an SM.
-template <bool BF16>
+// and the largest shared-memory carve-out.
 static cudaError_t prepare_bwd(int smem) {
-  auto kernel = pge::pge_bwd_kernel<BF16>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      pge::pge_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(kernel,
+  return cudaFuncSetAttribute(pge::pge_bwd_kernel,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
 }
@@ -118,7 +112,7 @@ extern "C" int pge_bwd(const float* a, const float* b, const float* wmid,
                        float* dgamma, float* dbeta, float* dwlast,
                        float* da_part, float* db_part, float* dbuf,
                        float* ws, float* stat, int n, int H, int L2,
-                       int grid, int bf16, void* stream) {
+                       int grid, void* stream) {
   pge::Params A = make_params(a, b, wmid, bmid, gamma, beta, wlast, ws,
                               stat, n, H, L2);
   pge::Grads G;
@@ -135,37 +129,23 @@ extern "C" int pge_bwd(const float* a, const float* b, const float* wmid,
   G.nbuf = L2 >= 2 ? (L2 - 1 < 2 ? L2 - 1 : 2) : 0;
   if (H > pge::MAX_H_BWD || (G.nbuf > 0 && dbuf == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int smem = pge::bwd_smem_bytes(H, bf16 != 0);
-  cudaError_t err = bf16 ? prepare_bwd<true>(smem) : prepare_bwd<false>(smem);
+  const int smem = pge::bwd_smem_bytes(H);
+  cudaError_t err = prepare_bwd(smem);
   if (err != cudaSuccess) return (int)err;
-  constexpr int nt_mma = pge::BwdThreads<true>::N;
-  constexpr int nt_simt = pge::BwdThreads<false>::N;
-  if (bf16)
-    pge::pge_bwd_kernel<true><<<grid, nt_mma, smem, (cudaStream_t)stream>>>(
-        A, G);
-  else
-    pge::pge_bwd_kernel<false><<<grid, nt_simt, smem, (cudaStream_t)stream>>>(
-        A, G);
+  pge::pge_bwd_kernel<<<grid, pge::NT4, smem, (cudaStream_t)stream>>>(A, G);
   return (int)cudaGetLastError();
 }
 
 // Blocks of the forward (bwd = 0) or backward (bwd = 1) kernel that fit on
 // one SM at once at width H, into *out; returns the CUDA error code.
-extern "C" int pge_blocks_per_sm(int bwd, int bf16, int H, int* out) {
+extern "C" int pge_blocks_per_sm(int bwd, int H, int* out) {
   if (bwd) {
-    const int smem = pge::bwd_smem_bytes(H, bf16 != 0);
-    cudaError_t err =
-        bf16 ? prepare_bwd<true>(smem) : prepare_bwd<false>(smem);
+    const int smem = pge::bwd_smem_bytes(H);
+    cudaError_t err = prepare_bwd(smem);
     if (err != cudaSuccess) return (int)err;
-    const void* k = bf16 ? (const void*)pge::pge_bwd_kernel<true>
-                         : (const void*)pge::pge_bwd_kernel<false>;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        out, k, bf16 ? pge::BwdThreads<true>::N : pge::BwdThreads<false>::N,
-        smem);
+        out, pge::pge_bwd_kernel, pge::NT4, smem);
   }
-  if (!bf16)
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        out, pge::pge_fwd_simt_kernel, pge::NT, 0);
   if (!fwd_width_ok(H)) return (int)cudaErrorInvalidValue;
   const int smem = pge::fwd_smem_bytes(H);
   const void* k = fwd_kernel(H);
@@ -177,8 +157,8 @@ extern "C" int pge_blocks_per_sm(int bwd, int bf16, int H, int* out) {
 }
 
 // Bytes of dynamic shared memory of a backward block at width H.
-extern "C" int pge_bwd_smem_bytes(int H, int bf16) {
-  return pge::bwd_smem_bytes(H, bf16 != 0);
+extern "C" int pge_bwd_smem_bytes(int H) {
+  return pge::bwd_smem_bytes(H);
 }
 
 #ifdef PGE_PHASES

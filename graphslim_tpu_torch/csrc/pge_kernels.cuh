@@ -15,10 +15,10 @@
 //
 // Design.  A tile's activations (2048 pairs x H channels, 2 MB at H = 256)
 // do not fit in shared memory, and BatchNorm needs a whole layer's
-// statistics before the layer can be applied.  The tensor-core forward
-// takes a layer's statistics in the epilogue of its product and runs the
-// top layer's product a second time for the output dot (see "Forward,
-// tensor-core version" below); a launch whose result feeds the backward
+// statistics before the layer can be applied.  The forward takes a
+// layer's statistics in the epilogue of its product and runs the top
+// layer's product a second time for the output dot (see "Forward"
+// below); a launch whose result feeds the backward
 // also writes every hidden layer's pre-BN activations and the statistics
 // to a per-tile workspace in device memory, which the backward reads
 // instead of recomputing them (the TPU kernel recomputed; 1.9 GB at the
@@ -34,17 +34,15 @@
 // per-block partials of the parameter gradients and per-tile partials of
 // da/db, which the wrapper sums afterwards (deterministic, no atomics).
 //
-// Matmuls: with mm_bf16 set (the main path), every operand is rounded to
-// bf16 (round to nearest even) as it is staged in shared memory and the
-// product runs on the tensor cores with fp32 accumulators (wgmma from
-// 128-byte-swizzled tiles: m64n256k16 in the forward at H = 256, m64n64k16
-// in the backward) -- the TPU kernel's MM_DTYPE
-// numerics.  Without it they run on the CUDA cores in full fp32 (128 x 64
-// output tile, 8 x 4 outputs per thread), through the workspace in every
-// launch.  The forward builds its operand four elements at a time with
-// the whole width H as one output chunk (fwd_product); the backward
-// four elements at a time into 128 x 128 output tiles, with the workspace
-// operand in a cp.async ring (gemm_stage4), or in fp32 (gemm_simt4).
+// Matmuls: every operand is rounded to bf16 (round to nearest even) as it
+// is staged in shared memory and the product runs on the tensor cores with
+// fp32 accumulators (wgmma from 128-byte-swizzled tiles: m64n256k16 in the
+// forward at H = 256, m64n64k16 in the backward) -- the TPU kernel's
+// MM_DTYPE numerics, and the only precision these kernels take.  The
+// forward builds its operand four elements at a time with the whole width
+// H as one output chunk (fwd_product); the backward four elements at a
+// time into 128 x 128 output tiles, with the workspace operand in a
+// cp.async ring (gemm_stage4).
 //
 // Bound on the H100 at the slice's shapes (n = 1354, H = 256, L2 = 1):
 // the forward's hidden matmul is 2 * 1354^2 * 256 * 256 = 240 GFLOP of
@@ -104,12 +102,6 @@ constexpr unsigned BF16_ONES = 0x3f803f80u;   // two bf16 1.0
 constexpr int TI = 16;            // score-tile rows
 constexpr int TJ = 128;           // score-tile cols
 constexpr int P = TI * TJ;        // pairs per tile (BatchNorm population)
-constexpr int NT = 256;           // threads per block
-constexpr int BM = 128;           // fp32 matmul output tile rows
-constexpr int BN = 64;            // fp32 matmul output tile cols
-constexpr int BK = 16;            // fp32 matmul depth step
-constexpr int BMP = BM + 4;       // padded shared-memory row lengths
-constexpr int BNP = BN + 4;
 constexpr int MBM = 128;          // backward (wgmma) output tile rows
 constexpr int MBN = 128;          // backward output tile cols
 constexpr float EPS = 1e-5f;
@@ -189,194 +181,16 @@ struct Ctx {
   __device__ float* zbuf(int l) const {
     return Z + (size_t)(l - 1) * P * A.H;
   }
-  // Pre-BN value of layer l at pair p, channel c.
-  __device__ float zval(int l, int p, int c) const {
-    if (l == 0) {
-      int gi = T.i * TI + p / TJ, gj = T.j * TJ + p % TJ;
-      float av = gi < A.n ? A.a[(size_t)gi * A.H + c] : 0.f;
-      float bv = gj < A.n ? A.b[(size_t)gj * A.H + c] : 0.f;
-      return av + bv;
-    }
-    return zbuf(l)[(size_t)p * A.H + c];
-  }
-  // Post-BN-ReLU value of layer l (the input of layer l + 1).
-  __device__ float xval(int l, int p, int c) const {
-    return fmaxf(zval(l, p, c) * S.scale(l)[c] + S.shift(l)[c], 0.f);
-  }
 };
-
-// ---------------------------------------------------------------------------
-// Block-wide matmul C[M, N] = sum_k A(m, k) B(k, n) over shared-memory
-// tiles.  Loaders return one element; A_MCONTIG / B_KCONTIG pick the
-// thread-to-element map whose global reads are coalesced for the source's
-// contiguous axis.  epi(m, n, v0, v1) receives 2 consecutive columns of a
-// row; done(m0, n0) runs on every thread once an output tile's epilogue
-// is through (it may synchronize).  The output tile is 128 rows by BN
-// columns.  N must be a multiple of BN (64) and K of BK (16); rows m >= M
-// are skipped.
-// ---------------------------------------------------------------------------
-// One depth step of the fp32 product from the staged tiles As[k][m],
-// Bs[k][n]: thread (tr, tc) owns rows tr * 8 .. + 7, columns tc * 4 .. + 3.
-__device__ __forceinline__ void simt_step(float (&acc)[8][4], const float* As,
-                                          const float* Bs, int tr, int tc) {
-#pragma unroll
-  for (int kk = 0; kk < BK; ++kk) {
-    const float4 a0 = *reinterpret_cast<const float4*>(
-        &As[kk * BMP + tr * 8]);
-    const float4 a1 = *reinterpret_cast<const float4*>(
-        &As[kk * BMP + tr * 8 + 4]);
-    const float4 bv = *reinterpret_cast<const float4*>(
-        &Bs[kk * BNP + tc * 4]);
-    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float bw[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bw[j], acc[i][j]);
-  }
-}
-
-template <bool A_MCONTIG, bool B_KCONTIG, class FA, class FB, class FE,
-          class FD>
-__device__ void gemm_simt(int M, int N, int K, FA ldA, FB ldB, FE epi,
-                          FD done, float* As, float* Bs) {
-  const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
-  for (int m0 = 0; m0 < M; m0 += BM) {
-    for (int n0 = 0; n0 < N; n0 += BN) {
-      float acc[8][4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      for (int k0 = 0; k0 < K; k0 += BK) {
-        if (A_MCONTIG) {
-          const int m = tid & (BM - 1);
-#pragma unroll
-          for (int q = 0; q < 8; ++q) {
-            const int k = (tid >> 7) + 2 * q;
-            As[k * BMP + m] = (m0 + m < M) ? ldA(m0 + m, k0 + k) : 0.f;
-          }
-        } else {
-          const int k = tid & (BK - 1);
-#pragma unroll
-          for (int q = 0; q < 8; ++q) {
-            const int m = (tid >> 4) + 16 * q;
-            As[k * BMP + m] = (m0 + m < M) ? ldA(m0 + m, k0 + k) : 0.f;
-          }
-        }
-        if (B_KCONTIG) {
-          const int k = tid & (BK - 1);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int n = (tid >> 4) + 16 * q;
-            Bs[k * BNP + n] = ldB(k0 + k, n0 + n);
-          }
-        } else {
-          const int n = tid & (BN - 1);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int k = (tid >> 6) + 4 * q;
-            Bs[k * BNP + n] = ldB(k0 + k, n0 + n);
-          }
-        }
-        __syncthreads();
-        simt_step(acc, As, Bs, tr, tc);
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int m = m0 + tr * 8 + i;
-        if (m < M) {
-          epi(m, n0 + tc * 4, acc[i][0], acc[i][1]);
-          epi(m, n0 + tc * 4 + 2, acc[i][2], acc[i][3]);
-        }
-      }
-      done(m0, n0);
-    }
-  }
-}
-
-// The fp32 product of the backward, staged four elements at a time (the
-// operands are computed while they are staged, which per element costs
-// more than the products: see gemm_stage4 below, whose conventions this
-// follows).  ldA(row, depth) and ldB(row, depth) return 4 values that are
-// consecutive in the source: along the rows (RC: A(m..m+3, k),
-// B(n..n+3, k)) or along the depth (A(m, k..k+3), B(n, k..k+3)).  A
-// thread's three loads are started before the first is stored.  M a
-// multiple of 4, N of BN, K of BK; rows m >= M are staged as zeros.
-template <bool RC, class FA, class FB, class FE, class FD>
-__device__ void gemm_simt4(int M, int N, int K, FA ldA, FB ldB, FE epi,
-                           FD done, float* As, float* Bs) {
-  const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  // this thread's float4s of the A tile (two, AQ rows or depths apart) and
-  // of the B tile (one)
-  const int am = RC ? (tid & 31) * 4 : tid >> 2;
-  const int ak = RC ? tid >> 5 : (tid & 3) * 4;
-  const int bn = RC ? (tid & 15) * 4 : tid >> 2;
-  const int bk = RC ? tid >> 4 : (tid & 3) * 4;
-  constexpr int AQ = RC ? NT / 32 : NT / 4;
-  for (int m0 = 0; m0 < M; m0 += BM) {
-    for (int n0 = 0; n0 < N; n0 += BN) {
-      float acc[8][4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      for (int k0 = 0; k0 < K; k0 += BK) {
-        float4 va[2];
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int m = am + (RC ? 0 : q * AQ), k = ak + (RC ? q * AQ : 0);
-          va[q] = m0 + m < M ? ldA(m0 + m, k0 + k) : zero;
-        }
-        const float4 vb = ldB(n0 + bn, k0 + bk);
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int m = am + (RC ? 0 : q * AQ), k = ak + (RC ? q * AQ : 0);
-          if (RC) {
-            *reinterpret_cast<float4*>(&As[k * BMP + m]) = va[q];
-          } else {
-            As[k * BMP + m] = va[q].x;
-            As[(k + 1) * BMP + m] = va[q].y;
-            As[(k + 2) * BMP + m] = va[q].z;
-            As[(k + 3) * BMP + m] = va[q].w;
-          }
-        }
-        if (RC) {
-          *reinterpret_cast<float4*>(&Bs[bk * BNP + bn]) = vb;
-        } else {
-          Bs[bk * BNP + bn] = vb.x;
-          Bs[(bk + 1) * BNP + bn] = vb.y;
-          Bs[(bk + 2) * BNP + bn] = vb.z;
-          Bs[(bk + 3) * BNP + bn] = vb.w;
-        }
-        __syncthreads();
-        simt_step(acc, As, Bs, tr, tc);
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int m = m0 + tr * 8 + i;
-        if (m < M) {
-          epi(m, n0 + tc * 4, acc[i][0], acc[i][1]);
-          epi(m, n0 + tc * 4 + 2, acc[i][2], acc[i][3]);
-        }
-      }
-      done(m0, n0);
-    }
-  }
-}
-
 
 // ---------------------------------------------------------------------------
 // Tensor-core matmul of the backward, staged four elements at a time.
 //
-// Fetching one element per call (as gemm_simt does) with an operand that is
-// computed while it is staged (dz needs a load of z, five per-channel
-// constants, the pair's mask and its upstream gradient) the per-element
-// index arithmetic and 4-byte accesses cost more than the products.  Here
-// a thread fetches 4 elements that are consecutive in the source: one
+// Fetching one element per call with an operand that is computed while it
+// is staged (dz needs a load of z, five per-channel constants, the pair's
+// mask and its upstream gradient) the per-element index arithmetic and
+// 4-byte accesses cost more than the products.  Here a thread fetches 4
+// elements that are consecutive in the source: one
 // 16-byte load, per-pair work once, constants as float4 from shared
 // memory, one 8-byte store of 4 bf16.  Both operands keep the source's
 // contiguous axis in shared memory, so the stores are as wide as the
@@ -393,8 +207,10 @@ __device__ void gemm_simt4(int M, int N, int K, FA ldA, FB ldB, FE epi,
 // from the workspace through a ring in shared memory (gemm_stage4).  The
 // walk over (output tile, depth step) keeps its coordinates by increment:
 // a division per step and thread costs as much as the products.  Rows
-// beyond M or N are staged as zeros.  epi and done as for gemm_simt.  The
-// block has NT4 = 512 threads, 4 warpgroups as 2 x 2 over the MBM x MBN
+// beyond M or N are staged as zeros.  epi(m, n, v0, v1) receives 2
+// consecutive columns of a row of the product; done(m0, n0) runs on every
+// thread once an output tile's epilogue is through (it may synchronize).
+// The block has NT4 = 512 threads, 4 warpgroups as 2 x 2 over the MBM x MBN
 // output tile: 32 accumulators a thread, which with the staged operand's
 // registers fits 128 registers, and one block an SM leaves L1 its share of
 // the SM's memory.
@@ -802,115 +618,8 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-
 // ---------------------------------------------------------------------------
-// Forward, fp32 version (mm_bf16 off): a pass per phase over the tile's
-// workspace, thread per channel unless noted.  Every thread reaches every
-// __syncthreads(); callers sync between passes.
-// ---------------------------------------------------------------------------
-
-// Layer-0 statistics from the factorization over valid rows and columns.
-__device__ void stats0(const Ctx& C) {
-  const Params& A = C.A;
-  const Tile& T = C.T;
-  for (int c = threadIdx.x; c < A.H; c += NT) {
-    double sa = 0, saa = 0, sb = 0, sbb = 0;
-    for (int r = 0; r < T.nvr; ++r) {
-      double v = A.a[(size_t)(T.i * TI + r) * A.H + c];
-      sa += v;
-      saa += v * v;
-    }
-    for (int q = 0; q < T.nvc; ++q) {
-      double v = A.b[(size_t)(T.j * TJ + q) * A.H + c];
-      sb += v;
-      sbb += v * v;
-    }
-    double mean = sa / T.nvr + sb / T.nvc;
-    double e2 = ((double)T.nvc * saa + (double)T.nvr * sbb + 2.0 * sa * sb)
-                / ((double)T.nvr * T.nvc);
-    float invstd = rsqrtf((float)(e2 - mean * mean) + EPS);
-    float scale = invstd * A.gamma[c];
-    C.S.mean(0)[c] = (float)mean;
-    C.S.invstd(0)[c] = invstd;
-    C.S.scale(0)[c] = scale;
-    C.S.shift(0)[c] = A.beta[c] - (float)mean * scale;
-  }
-}
-
-// Statistics of layer l >= 1 from its pre-BN workspace.
-__device__ void stats(const Ctx& C, int l) {
-  const Params& A = C.A;
-  const float* z = C.zbuf(l);
-  for (int c = threadIdx.x; c < A.H; c += NT) {
-    double s = 0, ss = 0;
-    for (int r = 0; r < C.T.nvr; ++r) {
-      for (int q = 0; q < C.T.nvc; ++q) {
-        double v = z[(size_t)(r * TJ + q) * A.H + c];
-        s += v;
-        ss += v * v;
-      }
-    }
-    double mean = s / C.T.count;
-    float invstd = rsqrtf((float)(ss / C.T.count - mean * mean) + EPS);
-    float scale = invstd * A.gamma[l * A.H + c];
-    C.S.mean(l)[c] = (float)mean;
-    C.S.invstd(l)[c] = invstd;
-    C.S.scale(l)[c] = scale;
-    C.S.shift(l)[c] = A.beta[l * A.H + c] - (float)mean * scale;
-  }
-}
-
-// Hidden layer l >= 1: Z_l = X_{l-1} @ wmid[l-1] + bmid[l-1].
-__device__ void layer_fwd_simt(const Ctx& C, int l, float* smem) {
-  const int H = C.A.H;
-  const float* W = C.A.wmid + (size_t)(l - 1) * H * H;
-  const float* bias = C.A.bmid + (size_t)(l - 1) * H;
-  float* z = C.zbuf(l);
-  gemm_simt<false, false>(
-      P, H, H, [&](int p, int k) { return C.xval(l - 1, p, k); },
-      [&](int k, int n) { return W[(size_t)k * H + n]; },
-      [&](int p, int n, float v0, float v1) {
-        *reinterpret_cast<float2*>(&z[(size_t)p * H + n]) =
-            make_float2(v0 + bias[n], v1 + bias[n + 1]);
-      },
-      [](int, int) {}, smem, smem + BK * BMP);
-}
-
-// Every launch writes the tile's workspace and statistics.
-__global__ void __launch_bounds__(NT, 2)
-pge_fwd_simt_kernel(Params A, float* out) {
-  __shared__ __align__(16) float smem[BK * BMP + BK * BNP];
-  Ctx C(A);
-  for (int t = blockIdx.x; t < A.ntiles; t += gridDim.x) {
-    C.at(t);
-    stats0(C);
-    __syncthreads();
-    for (int l = 1; l <= A.L2; ++l) {
-      layer_fwd_simt(C, l, smem);
-      __syncthreads();
-      stats(C, l);
-      __syncthreads();
-    }
-    // out[i, j] = relu(BN(z_top)) . wlast: a warp per pair, its lanes
-    // over the channels, then a shuffle reduction
-    const int lane = threadIdx.x & 31;
-    for (int p = threadIdx.x >> 5; p < P; p += NT / 32) {
-      if (!valid(C.T, p)) continue;   // the same for the whole warp
-      float s = 0.f;
-#pragma unroll 8
-      for (int c = lane; c < A.H; c += 32)
-        s += C.xval(A.L2, p, c) * A.wlast[c];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (lane == 0)
-        out[(size_t)(C.T.i * TI + p / TJ) * A.n + C.T.j * TJ + p % TJ] = s;
-    }
-    __syncthreads();
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Forward, tensor-core version (mm_bf16, the main path).
+// Forward.
 //
 // A block of FT = 256 threads (two warpgroups) an SM walks its tiles.  A
 // hidden layer's product runs over the tile's 16 chunks of FM = 128 pairs
@@ -1436,46 +1145,29 @@ constexpr int NCONST = 7;         // per-channel constant rows (BwdSmem)
 constexpr int MAX_H_BWD = 1024;   // reduce_pass: a thread per 4 channels
                                   // (256 threads cover 1024)
 
-// Threads of a backward block and blocks an SM should hold: the tensor-
-// core version runs gemm_stage4 (one block of 512), the fp32 version
-// gemm_simt4 (two of 256).
-template <bool BF16>
-struct BwdThreads {
-  static constexpr int N = BF16 ? NT4 : NT;
-  static constexpr int BLOCKS = BF16 ? 1 : 2;
-};
-
-// Output-tile columns of the matmul version, and the row pitch of the
-// shared-memory copy of a dX output tile.
-template <bool BF16>
-struct OutTile {
-  static constexpr int TN = BF16 ? MBN : BN;
-  static constexpr int EP = TN + 4;
-};
+// Row pitch of the shared-memory copy of a dX output tile (MBN columns).
+constexpr int EP = MBN + 4;
 
 // Dynamic shared memory of the backward kernel: matmul operands (also the
 // column-sum scratch of l0_tile_sums), the dX output tile (also the
 // scratch of reduce_pass), the [TI, H] row sums, the constants, the
-// tile's upstream gradient, and for the tensor-core version the ring of
-// workspace loads in flight.
-__host__ __device__ constexpr int bwd_rest_bytes(int H, bool bf16) {
-  return TM * ((bf16 ? MBN : BN) + 4) * 4 + (TI + NCONST) * H * 4 + P * 4
-         + (bf16 ? RING_FLOATS * 4 : 0);
+// tile's upstream gradient and the ring of workspace loads in flight.
+__host__ __device__ constexpr int bwd_rest_bytes(int H) {
+  return TM * EP * 4 + (TI + NCONST) * H * 4 + P * 4 + RING_FLOATS * 4;
 }
 
-// Pairs of operand tiles of the tensor-core version: two where a block's
-// shared memory holds them (H <= 256), else one.
+// Pairs of operand tiles: two where a block's shared memory holds them
+// (H <= 256), else one.
 __host__ __device__ constexpr int bwd_oper_bufs(int H) {
-  return 2 * BUF4_BYTES + bwd_rest_bytes(H, true) <= MAX_SMEM_BLOCK ? 2 : 1;
+  return 2 * BUF4_BYTES + bwd_rest_bytes(H) <= MAX_SMEM_BLOCK ? 2 : 1;
 }
 
-// The fp32 version's operand tiles and column-sum scratch fit 16 KB.
-__host__ __device__ constexpr int bwd_oper_bytes(int H, bool bf16) {
-  return bf16 ? bwd_oper_bufs(H) * BUF4_BYTES : 16 * 1024;
+__host__ __device__ constexpr int bwd_oper_bytes(int H) {
+  return bwd_oper_bufs(H) * BUF4_BYTES;
 }
 
-__host__ __device__ constexpr int bwd_smem_bytes(int H, bool bf16) {
-  return bwd_oper_bytes(H, bf16) + bwd_rest_bytes(H, bf16);
+__host__ __device__ constexpr int bwd_smem_bytes(int H) {
+  return bwd_oper_bytes(H) + bwd_rest_bytes(H);
 }
 
 struct BwdSmem {
@@ -1490,12 +1182,11 @@ struct BwdSmem {
   float* PSC;    // layer l - 1: scale, shift
   float* PSH;
   float* GS;     // [P] g of the tile's pairs, 0 outside [n, n]
-  float* ring;   // [RING_FLOATS] (tensor-core version)
-  template <bool BF16>
+  float* ring;   // [RING_FLOATS]
   __device__ void carve(unsigned char* base, int H) {
     oper = base;
-    E = reinterpret_cast<float*>(base + bwd_oper_bytes(H, BF16));
-    R = E + TM * OutTile<BF16>::EP;
+    E = reinterpret_cast<float*>(base + bwd_oper_bytes(H));
+    R = E + TM * EP;
     SC = R + TI * H;
     SH = SC + H;
     WS = SH + H;
@@ -1527,7 +1218,7 @@ __device__ __forceinline__ float gval(const Ctx& C, const Grads& G, int p) {
 // for the top layer dwlast, where dy = relu'(pre) * up and up = g * wlast
 // (TOP) or the raw dX in Din.  A thread owns 4 channels and every Gp-th
 // pair, UR loads in flight; the groups' partial sums meet in `scratch`
-// (4 sums x block size x 4 floats: 16 or 32 KB of the E tile) and
+// (4 sums x block size x 4 floats: 32 KB of the E tile) and
 // are added in group order.  Leaves the constants of dz_l and the scale
 // and shift of layer l - 1 in shared memory and adds the tile's share to
 // the block's partial gradients.  Ends synchronized.
@@ -1675,12 +1366,9 @@ __device__ void layer0_direct(const Ctx& C, const Grads& G, float* R,
 // writes the 8 columns' sums over the tile rows to ccol and adds the row
 // sums over these 8 columns into R.  A thread owns a channel and 16 / NH
 // tile rows; the NH row groups' column sums meet in Cc.
-template <bool BF16>
 __device__ void l0_tile_sums(const Ctx& C, int m0, int n0,
                              const BwdSmem& M, float* ccol) {
-  constexpr int TN = OutTile<BF16>::TN, EP = OutTile<BF16>::EP;
-  constexpr int NTH = BwdThreads<BF16>::N;
-  constexpr int NH = NTH / TN, RPT = TI / NH, NQ = TM / TI;
+  constexpr int TN = MBN, NH = NT4 / TN, RPT = TI / NH, NQ = TM / TI;
   float* Cc = reinterpret_cast<float*>(M.oper);   // [NH, NQ, TN]
   const Tile& T = C.T;
   const int H = C.A.H;
@@ -1717,7 +1405,7 @@ __device__ void l0_tile_sums(const Ctx& C, int m0, int n0,
   for (int k = 0; k < RPT; ++k)
     if (okc) M.R[(hh * RPT + k) * H + c] += rs[k];
   __syncthreads();
-  for (int o = threadIdx.x; o < NQ * TN; o += NTH) {
+  for (int o = threadIdx.x; o < NQ * TN; o += NT4) {
     const int ql = o / TN, c2 = o % TN;
     float s = 0.f;
 #pragma unroll
@@ -1793,11 +1481,10 @@ struct Partials {
 // is g wlast), else it is the raw dX in Din.  The dX product keeps only
 // row and column sums for layer 0 (l == 1) and writes raw dX to Dout for
 // a middle layer.
-template <bool BF16, bool TOP>
+template <bool TOP>
 __device__ void bwd_layer(const Ctx& C, const Grads& G, const BwdSmem& M,
                           int l, const float* Din, float* Dout, float* ccol,
                           const Partials& pd) {
-  constexpr int TN = OutTile<BF16>::TN, EP = OutTile<BF16>::EP;
   const Params& A = C.A;
   const int H = A.H;
   const bool to0 = l == 1;
@@ -1815,12 +1502,12 @@ __device__ void bwd_layer(const Ctx& C, const Grads& G, const BwdSmem& M,
     *o = w;
   };
   auto epi_dx = [&](int m, int n, float v0, float v1) {
-    float* o = to0 ? &M.E[(m % TM) * EP + n % TN] : &Dout[(size_t)m * H + n];
+    float* o = to0 ? &M.E[(m % TM) * EP + n % MBN] : &Dout[(size_t)m * H + n];
     *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
   };
   auto done_dx = [&](int m0, int n0) {
     if (to0 && !PGE_SKIP(SKIP_L0_SUMS))
-      l0_tile_sums<BF16>(C, m0, n0, M, ccol);
+      l0_tile_sums(C, m0, n0, M, ccol);
   };
   auto noop = [](int, int) {};
   // row m of the dX product is pair m, for layer 0 pair (m % TI, m / TI)
@@ -1864,86 +1551,62 @@ __device__ void bwd_layer(const Ctx& C, const Grads& G, const BwdSmem& M,
                        fmaxf(fmaf(z.w, sc.w, sh.w), 0.f));
   };
 
-  if constexpr (BF16) {
-    unsigned short* As = reinterpret_cast<unsigned short*>(M.oper);
-    // the workspace operand: the copies of z_l (and of the raw dX of a
-    // middle layer) into the thread's ring slot, and dz_l from the slot
-    constexpr int NSRC = TOP ? 1 : 2;
-    auto dz_copy = [&](int p, int c, float* slot) {
-      if ((PGE_CONST & CONST_DZ_NOLOAD) || !valid(C.T, p)) return;
-      cp_async16(slot, Z + (size_t)p * H + c);
-      if (!TOP) cp_async16(slot + 4, Din + (size_t)p * H + c);
-    };
-    auto dz_val = [&](const float* slot, int p, int c) {
-      if (PGE_CONST & CONST_DZ_NOCVT)
-        return make_uint2(BF16_ONES, BF16_ONES);
-      if (!valid(C.T, p)) return make_uint2(0u, 0u);
-      float4 up;
-      if (TOP) {
-        const float g = M.GS[p];
-        up = make_float4(g, g, g, g);
-      } else {
-        up = ld4(slot + 4);
-      }
-      return pack4(dz4(ld4(slot), up, c));
-    };
-    // X_{l-1} is finished at once and held as 4 bf16 (holding the loads
-    // instead cost registers and gained nothing)
-    auto x_ld = [&](int m, int p) {
-      if (PGE_CONST & CONST_X) return make_uint2(BF16_ONES, BF16_ONES);
-      return pack4(x4(m, p));
-    };
-    auto held = [](const uint2& v, int, int) { return v; };
-    // dW += X_{l-1}^T @ dZ_l   (reduction over the tile's pairs)
-    const int nbuf = bwd_oper_bufs(H);
-    if (!PGE_SKIP(SKIP_DW)) gemm_stage4<true, false, NSRC>(
-        H, H, P,
-        [&](int n, int p, float* slot) { dz_copy(p, n, slot); },
-        [&](const float* slot, int n, int p) { return dz_val(slot, p, n); },
-        x_ld, held, epi_dw, noop, As, nbuf, M.ring);
-    // dX_{l-1} = dZ_l @ W^T
-    if (!PGE_SKIP(SKIP_DX)) gemm_stage4<false, true, NSRC>(
-        P, H, H,
-        [&](int m, int k, float* slot) { dz_copy(pair_of(m), k, slot); },
-        [&](const float* slot, int m, int k) {
-          return dz_val(slot, pair_of(m), k);
-        },
-        [&](int n, int k) { return pack4(ld4(W + (size_t)n * H + k)); },
-        held, epi_dx, done_dx, As, nbuf, M.ring);
-  } else {
-    float* As = reinterpret_cast<float*>(M.oper);
-    auto dz_ld = [&](int p, int c) {
-      if (!valid(C.T, p)) return make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 up;
-      if (TOP) {
-        const float g = M.GS[p];
-        up = make_float4(g, g, g, g);
-      } else {
-        up = ld4(Din + (size_t)p * H + c);
-      }
-      return dz4(ld4(Z + (size_t)p * H + c), up, c);
-    };
-    gemm_simt4<true>(
-        H, H, P, x4, [&](int n, int p) { return dz_ld(p, n); }, epi_dw, noop,
-        As, As + BK * BMP);
-    gemm_simt4<false>(
-        P, H, H, [&](int m, int k) { return dz_ld(pair_of(m), k); },
-        [&](int n, int k) { return ld4(W + (size_t)n * H + k); }, epi_dx,
-        done_dx, As, As + BK * BMP);
-  }
+  unsigned short* As = reinterpret_cast<unsigned short*>(M.oper);
+  // the workspace operand: the copies of z_l (and of the raw dX of a
+  // middle layer) into the thread's ring slot, and dz_l from the slot
+  constexpr int NSRC = TOP ? 1 : 2;
+  auto dz_copy = [&](int p, int c, float* slot) {
+    if ((PGE_CONST & CONST_DZ_NOLOAD) || !valid(C.T, p)) return;
+    cp_async16(slot, Z + (size_t)p * H + c);
+    if (!TOP) cp_async16(slot + 4, Din + (size_t)p * H + c);
+  };
+  auto dz_val = [&](const float* slot, int p, int c) {
+    if (PGE_CONST & CONST_DZ_NOCVT)
+      return make_uint2(BF16_ONES, BF16_ONES);
+    if (!valid(C.T, p)) return make_uint2(0u, 0u);
+    float4 up;
+    if (TOP) {
+      const float g = M.GS[p];
+      up = make_float4(g, g, g, g);
+    } else {
+      up = ld4(slot + 4);
+    }
+    return pack4(dz4(ld4(slot), up, c));
+  };
+  // X_{l-1} is finished at once and held as 4 bf16 (holding the loads
+  // instead cost registers and gained nothing)
+  auto x_ld = [&](int m, int p) {
+    if (PGE_CONST & CONST_X) return make_uint2(BF16_ONES, BF16_ONES);
+    return pack4(x4(m, p));
+  };
+  auto held = [](const uint2& v, int, int) { return v; };
+  // dW += X_{l-1}^T @ dZ_l   (reduction over the tile's pairs)
+  const int nbuf = bwd_oper_bufs(H);
+  if (!PGE_SKIP(SKIP_DW)) gemm_stage4<true, false, NSRC>(
+      H, H, P,
+      [&](int n, int p, float* slot) { dz_copy(p, n, slot); },
+      [&](const float* slot, int n, int p) { return dz_val(slot, p, n); },
+      x_ld, held, epi_dw, noop, As, nbuf, M.ring);
+  // dX_{l-1} = dZ_l @ W^T
+  if (!PGE_SKIP(SKIP_DX)) gemm_stage4<false, true, NSRC>(
+      P, H, H,
+      [&](int m, int k, float* slot) { dz_copy(pair_of(m), k, slot); },
+      [&](const float* slot, int m, int k) {
+        return dz_val(slot, pair_of(m), k);
+      },
+      [&](int n, int k) { return pack4(ld4(W + (size_t)n * H + k)); },
+      held, epi_dx, done_dx, As, nbuf, M.ring);
   __syncthreads();
 }
 
-template <bool BF16>
-__global__ void __launch_bounds__(BwdThreads<BF16>::N,
-                                  BwdThreads<BF16>::BLOCKS)
+__global__ void __launch_bounds__(NT4, 1)
 pge_bwd_kernel(Params A, Grads G) {
   extern __shared__ __align__(1024) unsigned char bwd_smem[];
   const int H = A.H, L2 = A.L2;
   const size_t PH = (size_t)P * H;
   Ctx C(A);
   BwdSmem M;
-  M.carve<BF16>(bwd_smem, H);
+  M.carve(bwd_smem, H);
   Partials pd;
   pd.dwmid = G.dwmid + (size_t)blockIdx.x * L2 * H * H;
   pd.dbmid = G.dbmid + (size_t)blockIdx.x * L2 * H;
@@ -1966,10 +1629,10 @@ pge_bwd_kernel(Params A, Grads G) {
     for (int l = L2; l >= 1; --l) {
       float* Dout = l == 1 ? nullptr : blockbuf + ((l - 1) & 1) % G.nbuf * PH;
       if (l == L2)
-        bwd_layer<BF16, true>(C, G, M, l, nullptr, Dout, ccol, pd);
+        bwd_layer<true>(C, G, M, l, nullptr, Dout, ccol, pd);
       else
-        bwd_layer<BF16, false>(C, G, M, l, blockbuf + (l & 1) % G.nbuf * PH,
-                               Dout, ccol, pd);
+        bwd_layer<false>(C, G, M, l, blockbuf + (l & 1) % G.nbuf * PH, Dout,
+                         ccol, pd);
     }
     __syncthreads();
     if (!PGE_SKIP(SKIP_FINISH0))

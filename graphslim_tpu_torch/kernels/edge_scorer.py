@@ -33,9 +33,7 @@ is combined in a fixed order, so runs are bit-equal.
 version (:class:`ScorerPlain`, an explicit backward in tensor ops with
 the kernels' formulas) for a CPU one; a CUDA tensor never falls back.
 The library is built with ``nvcc`` at first use.  ``LAUNCHES`` counts
-the forward and backward chains launched; each forward launch also adds
-its ``E`` entries to the recorder's counter ``generator.fused_entries``
-(:mod:`graphslim_tpu_torch.profiling`).
+the forward and backward chains launched.
 """
 
 from __future__ import annotations
@@ -47,7 +45,6 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from graphslim_tpu_torch.kernels.build import load_library
-from graphslim_tpu_torch.profiling import count
 
 EPS = 1e-5
 H_MAX = 256   # the widest hidden layer: a block of dz2·W2ᵀ owns whole rows
@@ -179,7 +176,6 @@ def forward_on(lib, stream: int, entries: Entries, params: tuple) -> tuple:
         raise RuntimeError(f"edge scorer forward launch failed: CUDA error "
                            f"{rc}")
     LAUNCHES["edge_scorer_fwd"] += 1
-    count("generator.fused_entries", E)
     return scores, z1, z2, st
 
 

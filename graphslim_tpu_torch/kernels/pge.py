@@ -30,14 +30,15 @@ forward is 240 GFLOP of matmul over the valid pairs (0.24 ms at the
 989 TFLOP/s bf16 peak) and bound by operations; the backward does twice
 those operations (dW and dX) and reads the 1.9 GB workspace (0.56 ms at
 3.35 TB/s), so it is bound by bytes.  The forward launch that keeps the
-workspace also writes its 1.96 GB: 0.585 ms at 3.35 TB/s.  With
-``mm_bf16`` (the main path) the matmuls run on the tensor cores
-(``wgmma``), else on the CUDA cores in fp32 (the forward then passes
-through the per-tile workspace in every launch).  ``PERF.md`` holds the
-kernels' times beside these bounds.
+workspace also writes its 1.96 GB: 0.585 ms at 3.35 TB/s.  The matmuls
+run on the tensor cores (``wgmma``) with bf16 operands and fp32
+accumulators, the TPU kernel's numerics and the kernels' only precision.
+``PERF.md`` holds the kernels' times beside these bounds.
 
 :func:`pair_scores` takes the kernels for a CUDA tensor and the plain
-version for a CPU tensor; a CUDA tensor never falls back.  The kernels are
+version for a CPU tensor; a CUDA tensor never falls back (float32 matmul
+operands, ``mm_bf16=False``, exist only in the plain version, which the
+CPU runs and the tests hold the kernels to).  The kernels are
 built with ``nvcc`` at first use into ``build/kernels/`` and bound with
 ctypes; ``LAUNCHES`` counts each kernel's launches, the forward's two
 kinds apart (``pge_fwd_ws`` keeps the workspace, ``pge_fwd_nows`` not).
@@ -56,7 +57,7 @@ TI = 16           # score-tile rows    (csrc/pge_kernels.cuh: pge::TI)
 TJ = 128          # score-tile columns (pge::TJ)
 P = TI * TJ       # pairs per tile: the BatchNorm population
 EPS = 1e-5        # BatchNorm epsilon
-_H_MULTIPLE = 64  # the kernels' matmul tile width (pge::BN)
+_H_MULTIPLE = 64  # the kernels' products run in 64-column blocks
 
 LAUNCHES = {"pge_fwd_ws": 0, "pge_fwd_nows": 0, "pge_bwd": 0}
 # the last forward and backward launch: grid and the bytes of device-memory
@@ -98,13 +99,13 @@ def build() -> ctypes.CDLL:
         return _LIB
     lib, info = load_library("pge")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.pge_fwd.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
+    lib.pge_fwd.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
     lib.pge_fwd.restype = i32
-    lib.pge_bwd.argtypes = [ptr] * 18 + [i32] * 5 + [ptr]
+    lib.pge_bwd.argtypes = [ptr] * 18 + [i32] * 4 + [ptr]
     lib.pge_bwd.restype = i32
-    lib.pge_blocks_per_sm.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
+    lib.pge_blocks_per_sm.argtypes = [i32, i32, ctypes.POINTER(i32)]
     lib.pge_blocks_per_sm.restype = i32
-    lib.pge_bwd_smem_bytes.argtypes = [i32, i32]
+    lib.pge_bwd_smem_bytes.argtypes = [i32]
     lib.pge_bwd_smem_bytes.restype = i32
     lib.pge_fwd_smem_bytes.argtypes = [i32]
     lib.pge_fwd_smem_bytes.restype = i32
@@ -116,15 +117,14 @@ def build() -> ctypes.CDLL:
 _PER_SM: dict = {}
 
 
-def blocks_per_sm(lib, bwd: bool, mm_bf16: bool, H: int) -> int:
-    """Blocks of a kernel that one SM holds at once (the tensor-core
-    kernels' depend on the width through their shared memory); asked once
-    per case."""
-    key = (bwd, mm_bf16, H if bwd or mm_bf16 else 0)
+def blocks_per_sm(lib, bwd: bool, H: int) -> int:
+    """Blocks of the forward or backward kernel that one SM holds at once
+    (they depend on the width through the kernels' shared memory); asked
+    once per case."""
+    key = (bwd, H)
     if key not in _PER_SM:
         per_sm = ctypes.c_int(0)
-        rc = lib.pge_blocks_per_sm(int(bwd), int(mm_bf16), H,
-                                   ctypes.byref(per_sm))
+        rc = lib.pge_blocks_per_sm(int(bwd), H, ctypes.byref(per_sm))
         if rc != 0 or per_sm.value < 1:
             raise RuntimeError(
                 f"PGE kernel occupancy query failed: CUDA error {rc}, "
@@ -133,13 +133,12 @@ def blocks_per_sm(lib, bwd: bool, mm_bf16: bool, H: int) -> int:
     return _PER_SM[key]
 
 
-def _grid(lib, device: torch.device, ntiles: int, bwd: bool, mm_bf16: bool,
+def _grid(lib, device: torch.device, ntiles: int, bwd: bool,
           H: int) -> int:
-    """Persistent grid: as many blocks as fit on the card at once (at most
-    two per SM by the kernels' launch bounds, one for the tensor-core
-    forward), at most one per tile."""
+    """Persistent grid: as many blocks as fit on the card at once (one per
+    SM by the kernels' launch bounds), at most one per tile."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(ntiles, blocks_per_sm(lib, bwd, mm_bf16, H) * sms))
+    return max(1, min(ntiles, blocks_per_sm(lib, bwd, H) * sms))
 
 
 def _check(a, b, wmid, bmid, gamma, beta, wlast, n: int, g=None):
@@ -184,14 +183,12 @@ def _workspace_sizes(n: int, H: int, L2: int) -> tuple:
     return ntiles * L2 * P * H, ntiles * _stat_rows(L2) * H
 
 
-def fwd_buffer_sizes(n: int, H: int, L2: int, grid: int, mm_bf16: bool,
+def fwd_buffer_sizes(n: int, H: int, L2: int, grid: int,
                      keep: bool) -> tuple:
     """Floats of (workspace, statistics) one forward launch allocates: the
-    per-tile ones the backward reads when ``keep`` and in every launch of
-    the fp32 version (whose dataflow passes through them); else a
-    per-block buffer that only the tensor-core version's middle layers use
-    (none for L2 ≤ 1)."""
-    if keep or not mm_bf16:
+    per-tile ones the backward reads when ``keep``, else a per-block
+    buffer that only middle layers use (none for L2 ≤ 1)."""
+    if keep:
         return _workspace_sizes(n, H, L2)
     return grid * max(L2 - 1, 0) * P * H, 0
 
@@ -203,30 +200,30 @@ def keeps_workspace(grad_enabled: bool, requires_grad: bool) -> bool:
     return grad_enabled and requires_grad
 
 
-def pge_fwd(a, b, wmid, bmid, gamma, beta, wlast, n: int, mm_bf16: bool,
+def pge_fwd(a, b, wmid, bmid, gamma, beta, wlast, n: int,
             keep: bool = True) -> tuple:
     """(scores [n, n] without the final bias, workspace, statistics) from
     the forward kernel; with ``keep`` the last two are the per-tile ones
-    :func:`pge_bwd` reads, else the launch's own scratch (empty for the
-    tensor-core version at L2 ≤ 1)."""
+    :func:`pge_bwd` reads, else the launch's own scratch (empty at
+    L2 ≤ 1)."""
     H, L2 = _check(a, b, wmid, bmid, gamma, beta, wlast, n)
     lib = build()
-    if mm_bf16 and lib.pge_fwd_smem_bytes(H) < 0:
-        raise ValueError(f"the tensor-core PGE forward takes widths whose "
+    if lib.pge_fwd_smem_bytes(H) < 0:
+        raise ValueError(f"the PGE forward kernel takes widths whose "
                          f"operands fit a block's shared memory (up to "
                          f"320), got {H}")
     ntiles = _cdiv(n, TI) * _cdiv(n, TJ)
-    grid = _grid(lib, a.device, ntiles, False, mm_bf16, H)
+    grid = _grid(lib, a.device, ntiles, False, H)
     f32 = dict(dtype=torch.float32, device=a.device)
     out = torch.empty(n, n, **f32)
-    n_ws, n_stat = fwd_buffer_sizes(n, H, L2, grid, mm_bf16, keep)
+    n_ws, n_stat = fwd_buffer_sizes(n, H, L2, grid, keep)
     ws = torch.empty(n_ws, **f32)
     stat = torch.empty(n_stat, **f32)
     LAST_FWD.update(grid=grid, keep=keep,
                     workspace_bytes=4 * (n_ws + n_stat))
     rc = lib.pge_fwd(_p(a), _p(b), _p(wmid), _p(bmid), _p(gamma), _p(beta),
                      _p(wlast), _p(out), _p(ws), _p(stat), n, H, L2, grid,
-                     int(mm_bf16), int(keep), _stream(a.device))
+                     int(keep), _stream(a.device))
     if rc != 0:
         raise RuntimeError(f"pge_fwd_kernel launch failed: CUDA error {rc}")
     LAUNCHES["pge_fwd_ws" if keep else "pge_fwd_nows"] += 1
@@ -252,8 +249,8 @@ def bwd_scratch_shapes(n: int, H: int, L2: int, grid: int) -> dict:
     return shapes
 
 
-def pge_bwd(a, b, wmid, bmid, gamma, beta, wlast, g, ws, stat, n: int,
-            mm_bf16: bool) -> tuple:
+def pge_bwd(a, b, wmid, bmid, gamma, beta, wlast, g, ws, stat,
+            n: int) -> tuple:
     """(da, db, dwmid, dbmid, dgamma, dbeta, dwlast) from the backward
     kernel, given the forward kernel's workspace and statistics for the
     same inputs; per-block and per-tile partials are summed here."""
@@ -269,7 +266,7 @@ def pge_bwd(a, b, wmid, bmid, gamma, beta, wlast, g, ws, stat, n: int,
                              f"for these shapes")
     lib = build()
     ni, nj = _cdiv(n, TI), _cdiv(n, TJ)
-    grid = _grid(lib, a.device, ni * nj, True, mm_bf16, H)
+    grid = _grid(lib, a.device, ni * nj, True, H)
     f32 = dict(dtype=torch.float32, device=a.device)
     # partials a block adds to are zeroed; the per-tile ones and the dX
     # buffers are written before they are read
@@ -284,7 +281,7 @@ def pge_bwd(a, b, wmid, bmid, gamma, beta, wlast, g, ws, stat, n: int,
                      _p(buf["dgamma"]), _p(buf["dbeta"]), _p(buf["dwlast"]),
                      _p(buf["da_part"]), _p(buf["db_part"]),
                      None if dbuf is None else _p(dbuf), _p(ws), _p(stat),
-                     n, H, L2, grid, int(mm_bf16), _stream(a.device))
+                     n, H, L2, grid, _stream(a.device))
     if rc != 0:
         raise RuntimeError(f"pge_bwd_kernel launch failed: CUDA error {rc}")
     LAUNCHES["pge_bwd"] += 1
@@ -297,21 +294,20 @@ class PGEPairScores(torch.autograd.Function):
     """Forward kernel in ``forward``, backward kernel in ``backward``."""
 
     @staticmethod
-    def forward(ctx, a, b, wmid, bmid, gamma, beta, wlast, n, mm_bf16):
+    def forward(ctx, a, b, wmid, bmid, gamma, beta, wlast, n):
         out, ws, stat = pge_fwd(a, b, wmid, bmid, gamma, beta, wlast, n,
-                                mm_bf16, keep=True)
+                                keep=True)
         ctx.save_for_backward(a, b, wmid, bmid, gamma, beta, wlast, ws,
                               stat)
-        ctx.n, ctx.mm_bf16 = n, mm_bf16
+        ctx.n = n
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         *inputs, ws, stat = ctx.saved_tensors
-        grads = pge_bwd(*inputs, g.contiguous(), ws, stat, ctx.n,
-                        ctx.mm_bf16)
-        return (*grads, None, None)
+        grads = pge_bwd(*inputs, g.contiguous(), ws, stat, ctx.n)
+        return (*grads, None)
 
 
 # ---------------------------------------------------------------------------
@@ -360,7 +356,7 @@ def pair_scores_plain(a, b, wmid, bmid, gamma, beta, wlast, n: int,
 
 def pair_scores_fwd_plain(a, b, wmid, bmid, gamma, beta, wlast, n: int,
                           mm_bf16: bool = True) -> torch.Tensor:
-    """The tensor-core forward kernel's dataflow in tensor ops, without
+    """The forward kernel's dataflow in tensor ops, without
     autograd → scores [n, n].
 
     Layer 0: statistics in float64 from the factorization over the tile's
@@ -517,14 +513,19 @@ def pair_scores(a, b, wmid, bmid, gamma, beta, wlast, n: int,
     """Pair-MLP scores [n, n] (before symmetrize/sigmoid, no last bias):
     the CUDA kernels for a CUDA tensor, the plain version for a CPU one.
     On the card a launch keeps the workspace only where a gradient can
-    follow (:func:`keeps_workspace`)."""
+    follow (:func:`keeps_workspace`); the kernels take bf16 matmul
+    operands only, so ``mm_bf16=False`` raises there."""
     if a.device.type == "cuda":
+        if not mm_bf16:
+            raise ValueError("the card's PGE kernels take bf16 matmul "
+                             "operands only (mm_bf16=True); float32 "
+                             "operands run in pair_scores_plain")
         args = [t.contiguous() for t in (a, b, wmid, bmid, gamma, beta,
                                          wlast)]
         if keeps_workspace(torch.is_grad_enabled(),
                            any(t.requires_grad for t in args)):
-            return PGEPairScores.apply(*args, n, mm_bf16)
-        return pge_fwd(*args, n, mm_bf16, keep=False)[0]
+            return PGEPairScores.apply(*args, n)
+        return pge_fwd(*args, n, keep=False)[0]
     if a.device.type == "cpu":
         return pair_scores_plain(a, b, wmid, bmid, gamma, beta, wlast, n,
                                  mm_bf16)

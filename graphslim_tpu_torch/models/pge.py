@@ -25,7 +25,9 @@ class PGEConfig:
     nnodes: int
     nhid: int = 128
     nlayers: int = 3
-    mm_bf16: bool = True    # bf16 matmul operands in the pair MLP
+    # bf16 matmul operands in the pair MLP; the card's kernels take only
+    # True, False runs the plain version on the CPU (the JAX parity tests)
+    mm_bf16: bool = True
 
     @staticmethod
     def for_dataset(nfeat: int, nnodes: int, dataset: str,

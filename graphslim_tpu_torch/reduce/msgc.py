@@ -10,11 +10,11 @@ Spans (:mod:`graphslim_tpu_torch.profiling`): ``msgc.skeletons`` around
 the skeletons' host build in the constructor (counter
 ``msgc.skeleton_entries``: the triples built), ``msgc.init`` around the
 synthetic features' init (the init reducer's own ``reduce`` nests in
-it), and in every call of the generator ``generator.score`` (counters
-``generator.scored_entries``: the entries scored, and
-``generator.fused_entries``: those the CUDA kernels scored, counted
-at their launch, none on the CPU), ``generator.scatter`` (the scores into the dense batch,
-symmetrized) and ``generator.norm``.
+it), and in every call of the generator ``generator.score`` (counter
+``generator.scored_entries``: the entries scored), ``generator.scatter``
+(the scores into the dense batch, symmetrized) and ``generator.norm``.
+``kernels.edge_scorer.LAUNCHES`` shows whether the CUDA kernels scored
+them.
 
 It runs on the GCond engine through its generator hooks
 (``generator_forward``, ``syn_adj_norm``, ``inference_adj``,

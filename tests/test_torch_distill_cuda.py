@@ -96,7 +96,7 @@ def test_simgc_step_matches_the_cpu(twins, tmp_path, update_pge):
     g, c = _pair("simgc", tmp_path, twins, epochs=1)
     n, d = c.n_syn, c.d
     for eng in (g, c):
-        eng.pge = PGE(PGEConfig(nfeat=d, nnodes=n, nhid=64, mm_bf16=False))
+        eng.pge = PGE(PGEConfig(nfeat=d, nnodes=n, nhid=64))
     teacher, tp = c.train_teacher(twins[1], False)
     stats = c.concat_stats(twins[1])
     _close(g.concat_stats(twins[0])[1], stats[1])

@@ -16,8 +16,8 @@ memory and the largest gaps).
   features;
   and, end to end through autograd, each side's gradients against the
   plain version in float64.
-* Two runs are bit-equal; the launch counters and the
-  ``generator.fused_entries`` counter advance; at the cell's size the
+* Two runs are bit-equal; the launch counters advance a chain a call
+  and ``generator.scored_entries`` the scorer's E; at the cell's size the
   forward keeps one [E, 256] tensor for the backward, and a forward and
   backward stay under 3.5 GiB above their inputs; a launch
   refused for its shared memory raises.
@@ -212,7 +212,7 @@ def test_two_runs_are_bit_equal(card):
     assert torch.equal(s1, s3)
 
 
-def test_launches_and_fused_entries_advance(card):
+def test_launches_and_scored_entries_advance(card):
     scorer, params, feat, w = _setup("ragged", card)
     ES.reset_launches()
     rec = P.Recorder()
@@ -227,7 +227,6 @@ def test_launches_and_fused_entries_advance(card):
         P.RECORDER = saved
     E = scorer.rows.shape[0]
     assert ES.LAUNCHES == {"edge_scorer_fwd": 2, "edge_scorer_bwd": 1}
-    assert counters["generator.fused_entries"] == 2 * E
     assert counters["generator.scored_entries"] == 2 * E
 
 

@@ -257,22 +257,70 @@ def test_keeps_workspace_only_where_a_gradient_can_follow(grad_enabled,
         (grad_enabled and requires_grad)
 
 
-@pytest.mark.parametrize("mm_bf16", [False, True])
 @pytest.mark.parametrize("L2", [0, 1, 2, 3])
-def test_fwd_buffer_sizes_per_launch_kind(L2, mm_bf16):
+def test_fwd_buffer_sizes_per_launch_kind(L2):
     """A launch that keeps the workspace allocates the per-tile workspace
-    and statistics the backward reads; a no-grad tensor-core launch only a
-    per-block buffer for middle layers (nothing at L2 ≤ 1); the fp32
-    version, which passes through the workspace, the per-tile ones."""
+    and statistics the backward reads; a no-grad launch only a per-block
+    buffer for middle layers (nothing at L2 ≤ 1)."""
     n, H, grid = 1354, 256, 132
-    kept = K.fwd_buffer_sizes(n, H, L2, grid, mm_bf16, keep=True)
+    kept = K.fwd_buffer_sizes(n, H, L2, grid, keep=True)
     assert kept == K._workspace_sizes(n, H, L2)
     assert kept[0] == 935 * L2 * K.P * H
-    ws, stat = K.fwd_buffer_sizes(n, H, L2, grid, mm_bf16, keep=False)
-    if mm_bf16:
-        assert (ws, stat) == (grid * max(L2 - 1, 0) * K.P * H, 0)
-    else:
-        assert (ws, stat) == kept
+    ws, stat = K.fwd_buffer_sizes(n, H, L2, grid, keep=False)
+    assert (ws, stat) == (grid * max(L2 - 1, 0) * K.P * H, 0)
+
+
+class _FakeLib:
+    """Stands in for the built library: ``pge_blocks_per_sm`` writes the
+    blocks an SM that ``per_sm`` gives for (bwd, H), returns ``rc`` and
+    records each query."""
+
+    def __init__(self, per_sm, rc=0):
+        self.per_sm, self.rc, self.asked = per_sm, rc, []
+
+    def pge_blocks_per_sm(self, bwd, H, out):
+        self.asked.append((bwd, H))
+        out._obj.value = self.per_sm(bwd, H)
+        return self.rc
+
+
+@pytest.fixture
+def _no_cached_occupancy(monkeypatch):
+    monkeypatch.setattr(K, "_PER_SM", {})
+
+
+@pytest.mark.parametrize("bwd", [False, True])
+def test_blocks_per_sm_asks_the_library_once_a_case(_no_cached_occupancy,
+                                                    bwd):
+    lib = _FakeLib(lambda b, H: 1)
+    assert [K.blocks_per_sm(lib, bwd, 256) for _ in range(3)] == [1, 1, 1]
+    assert lib.asked == [(int(bwd), 256)]
+
+
+def test_blocks_per_sm_keeps_each_kernel_and_width_apart(
+        _no_cached_occupancy):
+    """The forward and the backward at one width are separate entries, as
+    are two widths of one kernel (the kernels' shared memory grows with
+    the width)."""
+    lib = _FakeLib(lambda b, H: 1 + b + (H > 128))
+    got = [K.blocks_per_sm(lib, bwd, H)
+           for bwd, H in ((False, 256), (True, 256), (True, 64),
+                          (False, 256), (True, 64))]
+    assert got == [2, 3, 2, 2, 2]
+    assert lib.asked == [(0, 256), (1, 256), (1, 64)]
+
+
+@pytest.mark.parametrize("rc,per_sm", [(700, 1), (0, 0)])
+def test_blocks_per_sm_raises_on_a_failed_query(_no_cached_occupancy, rc,
+                                                per_sm):
+    """A nonzero CUDA error or no block an SM raises, and nothing is
+    cached: the next call asks the library again."""
+    lib = _FakeLib(lambda b, H: per_sm, rc)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match=f"CUDA error {rc}, "
+                                               f"{per_sm} blocks per SM"):
+            K.blocks_per_sm(lib, True, 128)
+    assert lib.asked == [(1, 128), (1, 128)]
 
 
 def test_pair_scores_without_grad_on_cpu_takes_the_plain_version():

@@ -3,12 +3,11 @@
 
 Run from the root of a checkout on a machine with a card:
 ``python3 tools/pge_kernel_phases.py``.  Two measurements, at the slice's
-shapes (n = 1354, H = 256) with bf16 matmul operands unless noted:
+shapes (n = 1354, H = 256), with the kernels' bf16 matmul operands:
 
 1. ``layers``: forward (the launch that keeps the workspace, and the one
    without) and backward ms of the real kernels for 0, 1 and 2 hidden
-   layers, in both precisions; the step from 0 to 1 is the cost of one
-   hidden layer.
+   layers; the step from 0 to 1 is the cost of one hidden layer.
 2. ``phases``: diagnostic builds of the same sources under
    ``build/phases/`` (their results are wrong; only their time counts).
    ``csrc/pge_kernels.cuh`` carries the guards: with ``-DPGE_PHASES`` a
@@ -95,13 +94,13 @@ def build_variant(variant: str) -> str:
     if res.returncode != 0:
         raise SystemExit(f"pge_kernel_phases: nvcc failed for {variant}:\n"
                          + res.stderr[-3000:])
-    # registers and spills of the bf16 kernels (the forward at H = 256)
+    # registers and spills of the kernels (the forward at H = 256)
     lines = res.stderr.splitlines()
     for i, ln in enumerate(lines):
-        for key, what in (("pge_bwd_kernelILb1", "bwd"),
+        for key, what in (("pge_bwd_kernel", "bwd"),
                           ("pge_fwd_kernelILi4", "fwd")):
             if key in ln and "Compiling" in ln:
-                print(f"ptxas {variant} {what} bf16: "
+                print(f"ptxas {variant} {what}: "
                       + " | ".join(x.strip() for x in lines[i + 1:i + 3]),
                       flush=True)
     return so
@@ -110,11 +109,11 @@ def build_variant(variant: str) -> str:
 def load(so: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(so)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.pge_fwd.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
+    lib.pge_fwd.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
     lib.pge_fwd.restype = i32
-    lib.pge_bwd.argtypes = [ptr] * 18 + [i32] * 5 + [ptr]
+    lib.pge_bwd.argtypes = [ptr] * 18 + [i32] * 4 + [ptr]
     lib.pge_bwd.restype = i32
-    lib.pge_blocks_per_sm.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
+    lib.pge_blocks_per_sm.argtypes = [i32, i32, ctypes.POINTER(i32)]
     lib.pge_blocks_per_sm.restype = i32
     lib.pge_fwd_smem_bytes.argtypes = [i32]
     lib.pge_fwd_smem_bytes.restype = i32
@@ -123,14 +122,14 @@ def load(so: str) -> ctypes.CDLL:
     return lib
 
 
-def times(L2: int, bf16: bool) -> tuple:
+def times(L2: int) -> tuple:
     """(forward keeping the workspace, forward without, backward) ms."""
     args = CS.pge_inputs(N, H, L2, seed=1, beta_shift=0.0)
     g = torch.randn(N, N, device="cuda")
-    fwd = CS.timed_ms(lambda: K.pge_fwd(*args, N, bf16), 5)
-    bare = CS.timed_ms(lambda: K.pge_fwd(*args, N, bf16, keep=False), 5)
-    _, ws, stat = K.pge_fwd(*args, N, bf16)
-    bwd = CS.timed_ms(lambda: K.pge_bwd(*args, g, ws, stat, N, bf16), 3)
+    fwd = CS.timed_ms(lambda: K.pge_fwd(*args, N), 5)
+    bare = CS.timed_ms(lambda: K.pge_fwd(*args, N, keep=False), 5)
+    _, ws, stat = K.pge_fwd(*args, N)
+    bwd = CS.timed_ms(lambda: K.pge_bwd(*args, g, ws, stat, N), 3)
     return fwd, bare, bwd
 
 
@@ -152,10 +151,9 @@ def main() -> None:
     del x
     K.build()
     for L2 in (0, 1, 2):
-        for bf16 in (False, True):
-            f, f0, b = times(L2, bf16)
-            print(f"layers L2={L2} bf16={bf16}: fwd {f:.3f} ms (no-grad "
-                  f"{f0:.3f}), bwd {b:.3f} ms", flush=True)
+        f, f0, b = times(L2)
+        print(f"layers L2={L2}: fwd {f:.3f} ms (no-grad {f0:.3f}), bwd "
+              f"{b:.3f} ms", flush=True)
     with ThreadPoolExecutor(len(VARIANTS)) as ex:
         libs = dict(zip(VARIANTS, ex.map(build_variant, VARIANTS)))
     for variant, so in libs.items():
@@ -165,7 +163,7 @@ def main() -> None:
         for name, mask in masks.items():
             if K._LIB.pge_set_skip(mask) != 0:
                 raise SystemExit("pge_kernel_phases: pge_set_skip failed")
-            f, f0, b = times(1, True)
+            f, f0, b = times(1)
             print(f"phases {variant} {name}: fwd {f:.3f} ms (no-grad "
                   f"{f0:.3f}), bwd {b:.3f} ms", flush=True)
     K._LIB = None
